@@ -3,23 +3,51 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a host with one CUDA card and the CUDA
-toolkit (``nvcc``).  Phases, each fatal on failure:
+toolkit (``nvcc``).  TF32 is off for matmuls and cuDNN throughout, so every
+f32 product on the card is a full f32 product.  Phases, each fatal on
+failure:
 
 1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and print the build time, ``nvcc``'s register and
-   shared-memory report, and the card's name and power limit;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes of the JAX package's kernel tests, at c = 0.25, and at the
-   paper's 2400x600x600 f32 lattice (limits: 1e-6 for one sweep, 1e-5 for
-   two);
-3. the main path, ``run_runtime_sweep`` on the full lattice (di = 10,
-   4 domains x 2 workers = 240 slab tasks), against the plain sweep, with
-   the launch counts zeroed before and read after; then ``jacobi_iterate``
-   (K2 for pairs of sweeps, K1 for the odd one) the same way;
-4. time each kernel, its plain version, the library's yardstick
-   (``conv3d`` with the six-point cross, TF32 off) and the runtime sweep
-   with CUDA events, beside the byte bound;
-5. print the ``kernels`` JSON line, the card's name and power limit, and
+   source, all at once) and print the build time, ``nvcc``'s register,
+   shared-memory and spill report, and the card's name and power limit;
+2. hold each kernel against its plain PyTorch version on the card:
+   K1 and K2 at the shapes of the JAX package's kernel tests, at c = 0.25,
+   and at the paper's 2400x600x600 f32 lattice (limits: 1e-6 for one
+   sweep, 1e-5 for two); K3 (flash attention) against ``mha_ref`` at the
+   shapes of ``tests/test_kernels.py`` (MQA, bidirectional, windowed,
+   Tk > Tq offset) in f32 and its bf16 case, and at qwen2-0.5b's shapes in
+   bf16, as the strided views the model passes: prefill 14 over 2 heads
+   at T = 128 and 1024 and at each of the serving drain's 12 prompt
+   lengths (ragged in the 32-key tile and the 4-position query block), and
+   decode of one query against a 2048-slot cache at q_offset 0, 517, 2047
+   and each prompt length.  Limits, per element against ``mha_ref``'s
+   value ``r``: 3e-5 in f32, 3e-5 + 2^-7 |r| in bf16;
+3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
+   (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
+   sweep, with the launch counts zeroed before and read after; then
+   ``jacobi_iterate`` (K2 for pairs of sweeps, K1 for the odd one) the same
+   way;
+4. the serving path: ``ServingEngine`` on full-width qwen2-0.5b in bf16
+   (random weights from ``torch.Generator`` seed 0), 12 requests of
+   128-1024 prompt tokens and 32 new tokens each (numpy seed 0, about 2/3
+   with a home replica), 3 replicas, ``max_seq`` 2048, under the
+   ``locality``, ``round_robin`` and ``single_queue`` policies.  Each drain
+   runs with the launch counts zeroed just before it and read just after:
+   K3 must launch 12 x 24 layers x (1 prefill + 32 decode steps) = 9504
+   times, the tokens must be identical across policies, and each policy's
+   ``ServeStats``, wall time, tokens per second, prefill ms per request and
+   decode ms per token are printed; one more drain under ``torch.profiler``
+   gives the card's idle share;
+5. the kernel path against the plain path: one request, teacher-forced
+   with the tokens the plain path (``use_kernel=False``) chose, through
+   both; the prefill's and every decode step's logits must agree within
+   the bf16 limit printed beside them;
+6. time each kernel, its plain version and the library's yardstick with
+   CUDA events, beside its bound: K1 and K2 at the full lattice (yardstick
+   ``conv3d`` with the six-point cross) and the runtime sweep; K3 at the
+   serving path's prefill and decode shapes (yardstick
+   ``scaled_dot_product_attention``, which the port never calls);
+7. print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
@@ -33,11 +61,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 LATTICE = (2400, 600, 600)    # the paper's lattice (repro/core/tasks.py PAPER_GRID)
 SWEEP_CASES = [((20, 20, 60), (10, 10)), ((8, 16, 128), (4, 8)),
                ((10, 10, 600), (10, 10)), ((30, 20, 32), (10, 5)),
@@ -45,6 +75,32 @@ SWEEP_CASES = [((20, 20, 60), (10, 10)), ((8, 16, 128), (4, 8)),
 TWO_STEP_CASES = [((20, 20, 32), (5, 5)), ((12, 8, 16), (4, 4)),
                   ((10, 10, 600), (10, 10)), ((8, 8, 8), (2, 2))]
 K1_ATOL, K2_ATOL = 1e-6, 1e-5
+# tests/test_kernels.py's flash cases: b, hq, hkv, tq, tk, hd, causal, window
+FLASH_CASES = [(2, 4, 2, 128, 128, 32, True, 0), (1, 8, 1, 256, 256, 64, True, 0),
+               (2, 4, 4, 128, 128, 16, False, 0), (1, 4, 2, 256, 256, 32, True, 96),
+               (1, 2, 2, 64, 192, 32, True, 0)]
+# K3 against mha_ref, per element |got - r| <= atol + rtol * |r|.  f32: the
+# online softmax reassociates the sums.  bf16: both compute in f32 from the
+# same bf16 values and round the result to bf16 once, so they may land one
+# bf16 ulp apart (at most 2^-7 |r|) on top of the f32 difference.  Relative
+# to each value, the limit stays below the small outputs of late rows over
+# long key ranges, where a lost key tile would show.
+K3_F32_TOL = dict(atol=3e-5, rtol=0.0)
+K3_BF16_TOL = dict(atol=3e-5, rtol=2.0 ** -7)
+# the serving workload (qwen2-0.5b at full width)
+ARCH, N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = "qwen2-0.5b", 12, 3, 32, 2048
+PROMPT_LEN = (128, 1024)
+POLICIES = ("locality", "round_robin", "single_queue")
+# K3 at qwen2-0.5b's shapes: (name, Tq, Tk, q_offset)
+K3_SHAPES = [("prefill_128", 128, 128, 0), ("prefill_1024", 1024, 1024, 0),
+             ("decode_0", 1, 2048, 0), ("decode_517", 1, 2048, 517),
+             ("decode_2047", 1, 2048, 2047)]
+K3_HEADLINE = "decode_517"    # 97 % of the path's launches are decode steps
+# kernel path vs plain path, teacher-forced: bf16 logits of magnitude ~3
+# have an ulp of 2^-6; attention rounded at other points (f32 softmax in
+# K3, bf16 scores and weights in the plain path) moves them by a few ulps
+# after 24 layers
+LOGITS_ATOL = 0.25
 
 
 def fail(msg: str) -> None:
@@ -63,7 +119,7 @@ def max_err(a, b) -> float:
         fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if not bool(a.isfinite().all()):
         fail("non-finite values in a kernel's output")
-    return float((a - b).abs().max())
+    return float((a.float() - b.float()).abs().max())
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -80,6 +136,98 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel: registers, shared memory, spills."""
+    out, name = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
+
+
+def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2):
+    """Least time for one K3 call on these inputs: the larger of the bytes
+    it must move (q, k, v rows it reads once, o written once: the visible
+    keys only) over HBM, and its flops (4*hd per visible (head, query, key)
+    pair) over the bf16 tensor-core peak."""
+    pairs = sum(min(tk, q_offset + t + 1) for t in range(tq))
+    visible = min(tk, q_offset + tq)
+    nbytes = elem_bytes * hd * (2 * b * hq * tq + 2 * b * hkv * visible)
+    flops = 4 * b * hq * hd * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+class Timed:
+    """Wraps a replica's prefill or decode step: synchronised host time of
+    each call, in ms (the engine syncs on every token anyway)."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict/list of parameters."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for sub in items for leaf in leaves(sub)]
+
+
+def device_spans(prof) -> list[tuple[str, int, int]]:
+    """(name, start ns, end ns) of every kernel, copy and set the profiler
+    saw on the card.  Read from the raw records: building the profiler's
+    event tree for a whole drain's half a million records takes minutes."""
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(spans) -> float:
+    """Union of the spans' device intervals, in ms."""
+    total, cur_s, cur_e = 0, None, None
+    for _, s, e in sorted(spans, key=lambda x: x[1]):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e6
+
+
+def top_kernels(spans, n: int = 8) -> list[str]:
+    """The ``n`` device functions with the most total time."""
+    by_name: dict[str, list[float]] = {}
+    for name, s, e in spans:
+        by_name.setdefault(name, []).append((e - s) / 1e6)
+    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:n]
+    return [f"  {sum(t):10.3f} ms {len(t):7d} calls {sum(t) / len(t) * 1e3:8.3f} us  "
+            f"{name[:90]}" for name, t in rows]
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: int) -> None:
+    print(f"[{time.perf_counter() - T_START:.1f} s] phase {phase}", flush=True)
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"the port's sources (src/repro_torch) are not beside {__file__}")
@@ -87,10 +235,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.jacobi import ops, ref
     from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
     from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Replica, Request, ServingEngine
     from repro_torch.stencil.jacobi import run_runtime_sweep
 
     dev = torch.device("cuda")
@@ -98,17 +251,35 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+
+    def zero_counts():
+        jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
+        flash_attention.launches = 0
+
+    def counts():
+        return {"jacobi_sweep": jacobi_sweep_cuda.launches,
+                "jacobi_two_step": jacobi_two_step_cuda.launches,
+                "flash_attention": flash_attention.launches}
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {_build.sources()}")
     for name, log in logs.items():
-        print(f"--- nvcc {name}.cu ---\n{log.strip()}")
+        print(f"--- nvcc {name}.cu: registers, shared memory, spills ---")
+        print("\n".join(ptxas_summary(log)))
+    k3_lib = _build.load("flash_attention")
+    print("flash_attention dynamic shared memory per block: " + ", ".join(
+        f"hd {hd}: {k3_lib.flash_attention_smem_bytes(hd)} B" for hd in (16, 32, 64, 128)))
 
     # -- 2. kernels against their plain versions --------------------------
+    stamp(2)
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"jacobi_sweep": 0.0, "jacobi_two_step": 0.0}
+    errs = {"jacobi_sweep": 0.0, "jacobi_two_step": 0.0, "flash_attention": 0.0}
     for shape, (di, dj) in SWEEP_CASES:
         for c in (1 / 6, 0.25):
             f = torch.randn(shape, generator=gen, device=dev)
@@ -135,14 +306,88 @@ def main() -> None:
     if errs["jacobi_sweep"] > K1_ATOL or errs["jacobi_two_step"] > K2_ATOL:
         fail(f"kernel disagrees with its plain version: {errs}")
 
-    # -- 3. the main path, then jacobi_iterate ----------------------------
+    print(f"K3 limits, per element against mha_ref's value r: |err| <= "
+          f"{K3_F32_TOL['atol']} in f32 (the online softmax reassociates the "
+          f"sums), {K3_BF16_TOL['atol']} + 2^-7 |r| in bf16 (both round an f32 "
+          f"result to bf16 once, so may land one bf16 ulp apart)")
+    k3_worst = 0.0      # the largest share of its limit any element used
+
+    def k3_check(label, got, want, tol):
+        nonlocal k3_worst
+        e = max_err(got, want)
+        want = want.float()
+        share = float(((got.float() - want).abs()
+                       / (tol["atol"] + tol["rtol"] * want.abs())).max())
+        k3_worst = max(k3_worst, share)
+        print(f"K3 {label}: max_abs_err {e:.3e}, |ref| max {float(want.abs().max()):.4f} "
+              f"median {float(want.abs().median()):.4f}, worst share of limit {share:.3f}")
+        return e
+
+    k3_f32, k3_bf16 = 0.0, 0.0
+    for b, hq, hkv, tq, tk, hd, causal, win in FLASH_CASES:
+        q = torch.randn((b, hq, tq, hd), generator=gen, device=dev)
+        k, v = (torch.randn((b, hkv, tk, hd), generator=gen, device=dev)
+                for _ in range(2))
+        kw = dict(causal=causal, window=win, q_offset=tk - tq)
+        k3_f32 = max(k3_f32, k3_check(
+            f"f32 {(b, hq, hkv, tq, tk, hd)} causal={causal} window={win}",
+            flash_attention(q, k, v, bq=tq, bk=tk, **kw), mha_ref(q, k, v, **kw),
+            K3_F32_TOL))
+    q, k, v = (torch.randn((1, 2, 128, 32), generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    k3_bf16 = max(k3_bf16, k3_check("bf16 (1, 2, 128, 32)", flash_attention(
+        q, k, v, bq=64, bk=64), mha_ref(q, k, v), K3_BF16_TOL))
+
+    cfg = get_config(ARCH)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def requests():
+        rng = np.random.default_rng(0)
+        reqs = []
+        for i in range(N_REQUESTS):
+            plen = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+            toks = rng.integers(0, cfg.vocab_size, size=plen)
+            home = int(rng.integers(0, REPLICAS)) if rng.random() < 0.67 else -1
+            reqs.append(Request(uid=i, tokens=toks, max_new=MAX_NEW, home_replica=home))
+        return reqs
+
+    def model_qkv(tq, tk):
+        """(B, T, H, hd) tensors passed as (B, H, T, hd) views, as the model does."""
+        q = torch.randn((1, tq, hq, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        k, v = (torch.randn((1, tk, hkv, hd), generator=gen, device=dev).bfloat16()
+                .transpose(1, 2) for _ in range(2))
+        return q, k, v
+
+    k3_inputs = {}
+    for name, tq, tk, qo in K3_SHAPES:
+        q, k, v = model_qkv(tq, tk)
+        k3_inputs[name] = (q, k, v, qo)
+        k3_bf16 = max(k3_bf16, k3_check(
+            f"bf16 {name} q {tuple(q.shape)} kv {tuple(k.shape)} q_offset={qo}",
+            flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk),
+            mha_ref(q, k, v, q_offset=qo), K3_BF16_TOL))
+    # the drain's own prompts: each prefill, and the first decode step after it
+    for plen in sorted(len(r.tokens) for r in requests()):
+        for tq, tk, qo in ((plen, plen, 0), (1, MAX_SEQ, plen)):
+            q, k, v = model_qkv(tq, tk)
+            k3_bf16 = max(k3_bf16, k3_check(
+                f"bf16 drain {'prefill' if tq > 1 else 'decode'} {plen} "
+                f"q {tuple(q.shape)} kv {tuple(k.shape)} q_offset={qo}",
+                flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk),
+                mha_ref(q, k, v, q_offset=qo), K3_BF16_TOL))
+    torch.cuda.synchronize()
+    if k3_worst > 1.0:
+        fail(f"K3 disagrees with mha_ref: an element used {k3_worst:.3f} of its limit")
+    errs["flash_attention"] = max(k3_f32, k3_bf16)
+
+    # -- 3. the Jacobi main path, then jacobi_iterate ----------------------
+    stamp(3)
     di, domains, wpd = 10, 4, 2
-    jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
+    zero_counts()
     out, stats = run_runtime_sweep(f, di=di, num_domains=domains,
                                    workers_per_domain=wpd)
     torch.cuda.synchronize()
-    main_launches = {"jacobi_sweep": jacobi_sweep_cuda.launches,
-                     "jacobi_two_step": jacobi_two_step_cuda.launches}
+    main_launches = counts()
     e_main = max_err(out, plain)
     print(f"run_runtime_sweep {LATTICE} di={di} domains={domains}x{wpd}: "
           f"max_abs_err {e_main:.3e}, launches {main_launches}")
@@ -155,21 +400,147 @@ def main() -> None:
     del out
 
     steps = 3
-    jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
+    zero_counts()
     it = ops.jacobi_iterate(f, steps)
     torch.cuda.synchronize()
-    iter_launches = {"jacobi_sweep": jacobi_sweep_cuda.launches,
-                     "jacobi_two_step": jacobi_two_step_cuda.launches}
+    iter_launches = counts()
     want = ref.jacobi_sweep_ref(ref.jacobi_sweep_ref(plain))
     e_iter = max_err(it, want)
     print(f"jacobi_iterate steps={steps}: max_abs_err {e_iter:.3e}, "
           f"launches {iter_launches}")
-    if e_iter > K2_ATOL or iter_launches != {"jacobi_sweep": 1,
-                                             "jacobi_two_step": 1}:
+    if e_iter > K2_ATOL or iter_launches["jacobi_sweep"] != 1 \
+            or iter_launches["jacobi_two_step"] != 1:
         fail(f"jacobi_iterate: err {e_iter}, launches {iter_launches}")
     del it, want, plain
 
-    # -- 4. timing ---------------------------------------------------------
+    # -- 4. the serving path at full width ---------------------------------
+    stamp(4)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(leaf.numel() for leaf in leaves(params))
+    print(f"{ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {hq}/{hkv} heads of "
+          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded()}, {n_params} params "
+          f"in {model.dtype}, built in {time.perf_counter() - t0:.2f} s")
+
+    def new_engine(policy):
+        engine = ServingEngine(model, params, num_replicas=REPLICAS,
+                               max_seq=MAX_SEQ, policy=policy)
+        for req in requests():
+            engine.submit(req)
+        return engine
+
+    want_k3 = N_REQUESTS * cfg.num_layers * (1 + MAX_NEW)
+    prompt_tokens = sum(len(r.tokens) for r in requests())
+    print(f"serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
+          f"{MAX_NEW} new tokens each, {REPLICAS} replicas, max_seq {MAX_SEQ}")
+    # warm-up (cuBLAS handles, the caching allocator): one short request,
+    # so the first policy's times are not the process's first calls
+    warm = requests()[0]
+    warm.max_new = 2
+    Replica(model, params, MAX_SEQ).run(warm)
+    torch.cuda.synchronize()
+    outs, serve_metrics = {}, {}
+    for policy in POLICIES:
+        engine = new_engine(policy)
+        prefill_t, decode_t = Timed(model.prefill), Timed(model.decode_step)
+        for rep in engine.replicas:
+            rep._prefill, rep._decode = prefill_t, decode_t
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        outs[policy] = {r.uid: tuple(r.out_tokens) for r in done}
+        generated = sum(len(r.out_tokens) for r in done)
+        m = {"wall_s": wall, "tokens_per_s": generated / wall,
+             "prefill_ms_per_request": float(np.mean(prefill_t.ms)),
+             "decode_ms_per_token": float(np.mean(decode_t.ms)),
+             "k3_launches": launched["flash_attention"],
+             "stats": engine.stats}
+        serve_metrics[policy] = m
+        print(f"{policy}: {engine.stats}, locality {engine.stats.locality_fraction:.3f}")
+        print(f"{policy}: wall {wall:.4f} s, {generated} tokens, "
+              f"{m['tokens_per_s']:.2f} tokens/s, prefill "
+              f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
+              f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
+        if launched["flash_attention"] != want_k3 or launched["jacobi_sweep"] \
+                or launched["jacobi_two_step"]:
+            fail(f"{policy}: launches {launched}, want {want_k3} of K3 and no other")
+        if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
+                not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values() for t in o):
+            fail(f"{policy}: served {len(done)} requests, {generated} tokens")
+    if not outs["locality"] == outs["round_robin"] == outs["single_queue"]:
+        fail("the policies generated different tokens")
+    print(f"tokens identical across {POLICIES}; request 0: {list(outs['locality'][0])}")
+
+    from torch.profiler import ProfilerActivity, profile
+    engine = new_engine("locality")
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_launches = counts()
+    t0 = time.perf_counter()
+    spans = device_spans(prof)
+    busy = busy_ms(spans)
+    print(f"profiler: {len(spans)} device records read in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if busy <= 0 or prof_launches["flash_attention"] != want_k3:
+        fail(f"profiled drain: device busy {busy} ms, launches {prof_launches}")
+    idle_share = 1 - busy / prof_wall_ms
+    print(f"profiled drain (locality): wall {prof_wall_ms:.4f} ms, device busy "
+          f"{busy:.4f} ms, idle share {idle_share:.4f}")
+    print("device time by function over the profiled drain:")
+    print("\n".join(top_kernels(spans)))
+    del engine, prof, spans
+
+    # -- 5. kernel path against plain path, teacher-forced -------------------
+    stamp(5)
+    req = requests()[0]
+    toks = torch.as_tensor(req.tokens, dtype=torch.int64, device=dev)[None]
+    plain_model = build_model(cfg, use_kernel=False)
+
+    def run(m, forced=None):
+        caches = m.init_cache(1, MAX_SEQ)
+        logits, caches = m.prefill(params, {"tokens": toks}, caches)
+        steps, chosen, pos = [logits[:, -1].float()], [], toks.shape[1]
+        for i in range(MAX_NEW):
+            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            chosen.append(int(cur[0, 0]))
+            if forced is not None:
+                cur = torch.full_like(cur, forced[i])
+            logits, caches = m.decode_step(params, cur, pos, caches)
+            steps.append(logits[:, -1].float())
+            pos += 1
+        return torch.cat(steps), chosen
+
+    zero_counts()
+    plain_logits, plain_chosen = run(plain_model)
+    if flash_attention.launches:
+        fail("the plain path launched K3")
+    kern_logits, kern_chosen = run(model, forced=plain_chosen)
+    if flash_attention.launches != cfg.num_layers * (1 + MAX_NEW):
+        fail(f"the teacher-forced kernel path launched K3 {flash_attention.launches} times")
+    diff = (kern_logits - plain_logits).abs().amax(dim=-1)
+    agree = sum(a == b for a, b in zip(kern_chosen, plain_chosen))
+    print(f"teacher-forced logits, kernel vs plain path ({1 + MAX_NEW} steps, "
+          f"|logits| up to {float(plain_logits.abs().max()):.3f}): max_abs_err "
+          f"{float(diff.max()):.4f} (prefill {float(diff[0]):.4f}), limit "
+          f"{LOGITS_ATOL} (bf16 ulp 2^-6 at |logits| 2-4; attention rounds at "
+          f"other points in the two paths); greedy choices agree {agree}/{MAX_NEW}")
+    if not bool(kern_logits.isfinite().all()) or float(diff.max()) > LOGITS_ATOL:
+        fail(f"kernel path logits disagree with the plain path: {diff.tolist()}")
+    del plain_model
+
+    # -- 6. timing ---------------------------------------------------------
+    stamp(6)
     sites = f.numel()
     io_bytes = 2 * 4 * sites                     # read f once, write once
     bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
@@ -185,8 +556,7 @@ def main() -> None:
                 "jacobi_two_step": time_ms(lambda: ref.jacobi_two_step_ref(f), 3)}
 
     # library yardstick: one cuDNN conv3d with the six-point cross (two for
-    # the two-step); cuDNN would use TF32 by default, so that is turned off
-    torch.backends.cudnn.allow_tf32 = False
+    # the two-step), TF32 off
     w = torch.zeros((1, 1, 3, 3, 3), device=dev)
     for i, j, k in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
         w[0, 0, i, j, k] = 1 / 6
@@ -216,8 +586,51 @@ def main() -> None:
           f"{bound['jacobi_sweep']:.4f} ms "
           f"({bound['jacobi_sweep'] / sweep_ms:.1%} of bound); one slab launch "
           f"{slab_ms:.4f} ms x {nslabs} = {slab_ms * nslabs:.4f} ms of device time")
+    del f, buf, x
 
-    # -- 5. result lines --------------------------------------------------
+    # K3 at the serving path's shapes.  Decode is far below launch latency,
+    # so back-to-back calls would time the host: each timed call is queued
+    # behind a 2 ms device sleep, so the events measure the device alone.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def device_ms(fn, iters=20):
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+    k3 = {}
+    for name, tq, tk, qo in K3_SHAPES:
+        q, k, v, _ = k3_inputs[name]
+        visible = min(tk, qo + tq)
+        if tq == 1:     # decode: the filled slots are the whole function
+            lib_call = lambda: sdpa(q, k[:, :, :visible], v[:, :, :visible],  # noqa: E731
+                                    enable_gqa=True)
+        else:
+            lib_call = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        e_lib = max_err(lib_call(), mha_ref(q, k, v, q_offset=qo))
+        bnd, by = k3_bound(1, hq, hkv, tq, tk, hd, qo)
+        k3[name] = {
+            "ms": device_ms(lambda: flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk)),
+            "plain_ms": device_ms(lambda: mha_ref(q, k, v, q_offset=qo), 5),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": device_ms(lib_call)}
+        r = k3[name]
+        print(f"flash_attention {name}: {r['ms']:.4f} ms, bound {bnd:.6f} ms by {by} "
+              f"({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
+              f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
+
+    # -- 7. result lines --------------------------------------------------
+    stamp(7)
     kernels = []
     for name, replaces, path, path_launches in (
             ("jacobi_sweep", "src/repro/kernels/jacobi/kernel.py:32",
@@ -230,6 +643,22 @@ def main() -> None:
             "launches": path_launches[name], "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound[name],
             "bound_by": bound_by[name], "library_ms": library_ms[name]})
+    head = k3[K3_HEADLINE]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+        "path": f"ServingEngine.run_until_drained ({ARCH}, locality)",
+        "launches": serve_metrics["locality"]["k3_launches"],
+        "max_abs_err": errs["flash_attention"], "limit_share": k3_worst,
+        "shape": K3_HEADLINE,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "shapes": k3})
+    serving = {p: {k: v for k, v in m.items() if k != "stats"} | {
+        "stats": vars(m["stats"])} for p, m in serve_metrics.items()}
+    print(json.dumps({"serving": serving, "idle_share": idle_share,
+                      "teacher_forced_max_abs_err": float(diff.max())}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,125 @@
+"""Model: the public API over the decoder stack.
+
+The port of ``repro.models.model``, with the reference's functional
+interface, so the serving engine ports line for line:
+
+    model = build_model(cfg)                         # device="cuda" by default
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = model.loss_fn(params, batch)
+    logits, caches = model.prefill(params, batch, caches)
+    logits, caches = model.decode_step(params, tokens, pos, caches)
+
+``params`` is a dict of tensors (the stack a list of per-layer dicts, see
+``transformer``).  The model runs eagerly on its device: ``cuda`` unless
+the caller passes ``device="cpu"``, and it raises without a card.  On the
+card attention runs in K3 unless ``use_kernel=False`` asks for the plain
+versions.  Whisper's encoder and the VLM's vision tokens are not ported
+yet (ROADMAP D).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .._device import resolve_device
+from ..configs.base import ModelConfig
+from .common import (Params, cross_entropy, embed_init, layer_norm,
+                     layer_norm_init, rms_norm, rms_norm_init)
+from .transformer import apply_stack, check_ported, stack_cache_specs, stack_init
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, max_pos: int = 4096, *,
+                 device: str | torch.device | None = None,
+                 use_kernel: bool = True):
+        if cfg.encoder is not None or cfg.vision is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the encoder (whisper) and vision (VLM) branches "
+                "are not ported yet: ROADMAP D")
+        for kind in set(cfg.layer_kinds()):
+            check_ported(cfg, kind)
+        self.cfg = cfg
+        self.max_pos = max_pos
+        self.dtype = _DTYPES[cfg.dtype]
+        self.device = resolve_device(device)
+        self.use_kernel = use_kernel
+
+    # -- parameters ---------------------------------------------------------
+    def init_params(self, generator: torch.Generator) -> Params:
+        """Random parameters at the config's widths, drawn from
+        ``generator`` (which must live on the model's device)."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        cfg = self.cfg
+        dt = self.dtype
+        p: Params = {
+            "tok": embed_init(generator, cfg.vocab_padded(), cfg.d_model, dt),
+            "final_norm": (rms_norm_init(cfg.d_model, dt, generator.device)
+                           if cfg.norm == "rms" else
+                           layer_norm_init(cfg.d_model, dt, generator.device)),
+            "stack": stack_init(generator, cfg, dt),
+        }
+        if not cfg.tie_embeddings:
+            p["head"] = embed_init(generator, cfg.vocab_padded(), cfg.d_model,
+                                   dt).T.contiguous()
+        return p
+
+    # -- forward --------------------------------------------------------------
+    def forward(self, params: Params, tokens: torch.Tensor, *,
+                extras: Optional[dict[str, torch.Tensor]] = None,
+                pos_offset: int = 0, caches: Optional[list[Params]] = None,
+                last_only: bool = False):
+        """Returns (logits, new_caches, aux)."""
+        cfg = self.cfg
+        x = params["tok"][tokens]   # gemma's embedding scale waits for its kinds
+
+        x, new_caches, aux = apply_stack(
+            params["stack"], x, cfg, pos_offset=pos_offset, caches=caches,
+            use_kernel=self.use_kernel)
+
+        if cfg.norm == "rms":
+            x = rms_norm(params["final_norm"], x)
+        else:
+            x = layer_norm(params["final_norm"], x)
+        if last_only:
+            x = x[:, -1:]
+        head = params["head"] if not cfg.tie_embeddings else params["tok"].T
+        logits = x @ head.to(x.dtype)
+        return logits, new_caches, aux
+
+    # -- train ---------------------------------------------------------------
+    def loss_fn(self, params: Params, batch: dict[str, torch.Tensor]):
+        logits, _, aux = self.forward(params, batch["tokens"], extras=batch)
+        ce = cross_entropy(logits, batch["labels"])
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    # -- serve ---------------------------------------------------------------
+    def prefill(self, params: Params, batch: dict[str, torch.Tensor],
+                caches: list[Params]):
+        logits, caches, _ = self.forward(params, batch["tokens"],
+                                         extras=batch, pos_offset=0,
+                                         caches=caches, last_only=True)
+        return logits, caches
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    pos: int, caches: list[Params]):
+        """tokens (B, 1); pos = number of tokens already in the cache."""
+        logits, caches, _ = self.forward(params, tokens, pos_offset=int(pos),
+                                         caches=caches)
+        return logits, caches
+
+    def init_cache(self, batch: int, max_seq: int) -> list[Params]:
+        """Zeroed per-layer caches on the model's device."""
+        specs = stack_cache_specs(self.cfg, batch, max_seq, self.dtype)
+        return [{name: torch.zeros(shape, dtype=dt, device=self.device)
+                 for name, (shape, dt) in spec.items()} for spec in specs]
+
+
+def build_model(cfg: ModelConfig, max_pos: int = 4096, *,
+                device: str | torch.device | None = None,
+                use_kernel: bool = True) -> Model:
+    return Model(cfg, max_pos=max_pos, device=device, use_kernel=use_kernel)

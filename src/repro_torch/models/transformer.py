@@ -1,0 +1,129 @@
+"""The decoder stack: one residual block per layer, applied in a loop.
+
+The port of ``repro.models.transformer``.  The reference stacks each
+pattern position's parameters over repeats and applies them with
+``lax.scan`` to keep compile time independent of depth; PyTorch runs
+eagerly, so here the stack is a plain list of per-layer parameter dicts in
+layer order (``cfg.layer_kinds()``), and caches are a list of per-layer
+dicts beside it.  ``repro_torch.models.convert`` unstacks the reference's
+``{"groups", "remainder"}`` tree into that list.
+
+Only the "full" kind with a dense MLP is ported so far; the other kinds,
+MLA and MoE raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from .attention import attention_block, attn_init
+from .common import Params, layer_norm, layer_norm_init, rms_norm, rms_norm_init
+from .mlp import mlp, mlp_init
+
+_NOT_PORTED = {
+    "local": "ROADMAP B8 (sliding-window layers and their ring-buffer cache)",
+    "cross": "ROADMAP B8 (cross-attention layers)",
+    "rglru": "ROADMAP C2 (RG-LRU blocks)",
+    "rwkv": "ROADMAP C1 (RWKV6 blocks)",
+}
+
+
+def check_ported(cfg: ModelConfig, kind: str) -> None:
+    """Raise unless the port can build and run a ``kind`` layer of ``cfg``."""
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+    if kind != "full":
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.mla is not None:
+        raise NotImplementedError("MLA attention is not ported yet: ROADMAP D")
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE blocks are not ported yet: ROADMAP D")
+
+
+def _norm_init(cfg: ModelConfig, d: int, dtype, device):
+    return rms_norm_init(d, dtype, device) if cfg.norm == "rms" else \
+        layer_norm_init(d, dtype, device)
+
+
+def _norm(cfg: ModelConfig, p: Params, x):
+    return rms_norm(p, x) if cfg.norm == "rms" else layer_norm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# one residual block
+# ---------------------------------------------------------------------------
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               dtype: torch.dtype = torch.float32) -> Params:
+    check_ported(cfg, kind)
+    d = cfg.d_model
+    gated = cfg.act in ("silu", "gelu")
+    return {"ln1": _norm_init(cfg, d, dtype, gen.device),
+            "attn": attn_init(gen, cfg, dtype=dtype),
+            "ln2": _norm_init(cfg, d, dtype, gen.device),
+            "mlp": mlp_init(gen, d, cfg.d_ff, gated=gated, dtype=dtype)}
+
+
+def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype) -> dict[str, tuple[tuple[int, ...], Any]]:
+    """``{name: (shape, dtype)}`` of one layer's decode cache."""
+    check_ported(cfg, kind)
+    kvd = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (kvd, dtype), "v": (kvd, dtype)}
+
+
+def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                pos_offset: int, cache: Optional[Params] = None,
+                cross_x: Optional[torch.Tensor] = None, causal: bool = True,
+                use_kernel: bool = True):
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss).
+
+    ``aux_loss`` is the MoE router's loss in the reference; the ported dense
+    blocks have none and return 0.0."""
+    check_ported(cfg, kind)
+    attn_cache = None
+    if cache is not None:
+        attn_cache = {k: v for k, v in cache.items() if k in ("k", "v")}
+    h, c_attn = attention_block(
+        p["attn"], _norm(cfg, p["ln1"], x), cfg, kind=kind,
+        pos_offset=pos_offset, cache=attn_cache, cross_x=cross_x,
+        causal=causal, use_kernel=use_kernel)
+    x = x + h
+    new_cache = None if cache is None else dict(c_attn or {})
+    x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.act)
+    return x, new_cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+def stack_init(gen: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype = torch.float32) -> list[Params]:
+    return [block_init(gen, cfg, kind, dtype) for kind in cfg.layer_kinds()]
+
+
+def stack_cache_specs(cfg: ModelConfig, batch: int, max_seq: int, dtype):
+    return [block_cache_spec(cfg, kind, batch, max_seq, dtype)
+            for kind in cfg.layer_kinds()]
+
+
+def apply_stack(params: list[Params], x: torch.Tensor, cfg: ModelConfig, *,
+                pos_offset: int, caches: Optional[list[Params]] = None,
+                cross_x: Optional[torch.Tensor] = None, causal: bool = True,
+                use_kernel: bool = True):
+    """Returns (x, new_caches, total_aux)."""
+    new_caches = None if caches is None else []
+    aux_total = 0.0
+    for i, kind in enumerate(cfg.layer_kinds()):
+        c = None if caches is None else caches[i]
+        x, nc, aux = apply_block(params[i], x, cfg, kind, pos_offset=pos_offset,
+                                 cache=c, cross_x=cross_x, causal=causal,
+                                 use_kernel=use_kernel)
+        if new_caches is not None:
+            new_caches.append(nc)
+        aux_total = aux_total + aux
+    return x, new_caches, aux_total
