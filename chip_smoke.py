@@ -21,40 +21,59 @@ failure:
    lengths (ragged in the 32-key tile and the 4-position query block), and
    decode of one query against a 2048-slot cache at q_offset 0, 517, 2047
    and each prompt length.  Limits, per element against ``mha_ref``'s
-   value ``r``: 3e-5 in f32, 3e-5 + 2^-7 |r| in bf16;
+   value ``r``: 3e-5 in f32, 3e-5 + 2^-7 |r| in bf16.  K4 (the WKV6
+   recurrence) against ``wkv6_ref``, output and final state, at the shapes
+   of ``tests/test_kernels.py`` in f32 (with the state carried across two
+   calls) and at rwkv6-3b's 40 heads of 64 with bf16 r, k, v: prefill
+   128 and 1024 and each of the rwkv6-3b drain's 12 prompt lengths, and
+   decode (T = 1) from a carried state.  Limit, per element: 1e-5 of the
+   shape's largest |ref| (both sum the same f32 products in other orders);
 3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
    (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
    sweep, with the launch counts zeroed before and read after; then
    ``jacobi_iterate`` (K2 for pairs of sweeps, K1 for the odd one) the same
    way;
-4. the serving path: ``ServingEngine`` on full-width qwen2-0.5b in bf16
+4. the serving path on full-width qwen2-0.5b in bf16: ``ServingEngine``
    (random weights from ``torch.Generator`` seed 0), 12 requests of
    128-1024 prompt tokens and 32 new tokens each (numpy seed 0, about 2/3
    with a home replica), 3 replicas, ``max_seq`` 2048, under the
    ``locality``, ``round_robin`` and ``single_queue`` policies.  Each drain
    runs with the launch counts zeroed just before it and read just after:
    K3 must launch 12 x 24 layers x (1 prefill + 32 decode steps) = 9504
-   times, the tokens must be identical across policies, and each policy's
-   ``ServeStats``, wall time, tokens per second, prefill ms per request and
-   decode ms per token are printed; one more drain under ``torch.profiler``
-   gives the card's idle share;
-5. the kernel path against the plain path: one request, teacher-forced
-   with the tokens the plain path (``use_kernel=False``) chose, through
-   both; the prefill's and every decode step's logits must agree within
-   the bf16 limit printed beside them;
+   times and no other kernel, the tokens must be identical across
+   policies, and each policy's ``ServeStats``, wall time, tokens per
+   second, prefill ms per request and decode ms per token are printed; one
+   more drain under ``torch.profiler`` gives the card's idle share and its
+   top device functions.  Then the kernel path against the plain path: one
+   request, teacher-forced with the tokens the plain path
+   (``use_kernel=False``) chose, through both; the prefill's and every
+   decode step's logits must agree within the bf16 limit printed beside
+   them;
+5. the same drains on full-width rwkv6-3b in bf16 (32 layers, d 2560, 40
+   heads of 64, 3.09 B parameters), with token ids under its 65536 vocab:
+   K4 must launch 12 x 32 x 33 = 12672 times per drain and the plain WKV
+   version never; K4 is also held against ``wkv6_ref`` on a decode step
+   from the state a real prefill left in the cache (first and last layer).
+   Its teacher-forced comparison runs on an f32 build of the same model
+   (12.4 GB), whose logits carry no bf16 rounding of the residual stream;
+   two planted faults in the plain path (u dropped, the state not carried
+   across decode steps) must each exceed the limit;
 6. time each kernel, its plain version and the library's yardstick with
    CUDA events, beside its bound: K1 and K2 at the full lattice (yardstick
    ``conv3d`` with the six-point cross) and the runtime sweep; K3 at the
    serving path's prefill and decode shapes (yardstick
-   ``scaled_dot_product_attention``, which the port never calls);
-7. print the ``kernels`` JSON line, the card's name and power limit, and
-   last the ``{"ok": true, ...}`` line.
+   ``scaled_dot_product_attention``, which the port never calls); K4 at
+   rwkv6-3b's prefill 1024 and 128 and decode (no PyTorch call computes
+   the WKV recurrence, so it has no yardstick);
+7. print the ``serving`` and ``kernels`` JSON lines, the card's name and
+   power limit, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -87,20 +106,40 @@ FLASH_CASES = [(2, 4, 2, 128, 128, 32, True, 0), (1, 8, 1, 256, 256, 64, True, 0
 # long key ranges, where a lost key tile would show.
 K3_F32_TOL = dict(atol=3e-5, rtol=0.0)
 K3_BF16_TOL = dict(atol=3e-5, rtol=2.0 ** -7)
-# the serving workload (qwen2-0.5b at full width)
-ARCH, N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = "qwen2-0.5b", 12, 3, 32, 2048
+# tests/test_kernels.py's WKV6 cases: b, t, h, hd
+WKV_CASES = [(2, 64, 2, 16), (1, 128, 4, 32), (2, 32, 1, 8)]
+# K4 against wkv6_ref, per element |got - r| <= K4_REL * max |r| over the
+# shape: both compute in f32 from the same (bf16-rounded) r, k, v, and sum
+# the same products in other orders, so they differ by a few f32 ulps of
+# the largest terms; 1e-5 of the largest value is far below the typical
+# one (the median |r| is printed beside it), where a lost step or column
+# would show
+K4_REL = 1e-5
+# the serving workloads: 12 requests of 128-1024 prompt tokens, 32 new tokens
+N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = 12, 3, 32, 2048
 PROMPT_LEN = (128, 1024)
 POLICIES = ("locality", "round_robin", "single_queue")
+QWEN, RWKV = "qwen2-0.5b", "rwkv6-3b"
 # K3 at qwen2-0.5b's shapes: (name, Tq, Tk, q_offset)
 K3_SHAPES = [("prefill_128", 128, 128, 0), ("prefill_1024", 1024, 1024, 0),
              ("decode_0", 1, 2048, 0), ("decode_517", 1, 2048, 517),
              ("decode_2047", 1, 2048, 2047)]
 K3_HEADLINE = "decode_517"    # 97 % of the path's launches are decode steps
-# kernel path vs plain path, teacher-forced: bf16 logits of magnitude ~3
-# have an ulp of 2^-6; attention rounded at other points (f32 softmax in
-# K3, bf16 scores and weights in the plain path) moves them by a few ulps
-# after 24 layers
-LOGITS_ATOL = 0.25
+# K4 at rwkv6-3b's shapes (name, T), each from a carried state written in
+# place, as the model calls it
+K4_SHAPES = [("prefill_128", 128), ("prefill_1024", 1024), ("decode", 1)]
+K4_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
+# kernel path vs plain path, teacher-forced.  qwen2-0.5b, bf16 logits: logits
+# of magnitude ~3 have an ulp of 2^-6; attention rounded at other points
+# (f32 softmax in K3, bf16 scores and weights in the plain path) moves them
+# by a few ulps after 24 layers.  rwkv6-3b, on an f32 build (the bf16 build
+# rounds its residual stream and gave gaps of 0.43 at |logits| 5): the two
+# paths differ only in the order of K4's f32 sums, and the gap measured on
+# the H100 was 0.0458 at |logits| 4.9, against 1.96 with u dropped and 7.50
+# with the state not carried across decode steps.  The limit sits 2.7x above
+# the sound reading and 15x below the nearer fault; both faults run in every
+# call and must exceed it
+LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125}
 
 
 def fail(msg: str) -> None:
@@ -136,6 +175,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call.  Each timed call is queued behind a 2 ms
+    device sleep, so the events measure the device alone even where the
+    kernel is far below launch latency (back-to-back calls would time the
+    host)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel: registers, shared memory, spills."""
     out, name = [], ""
@@ -149,6 +208,14 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
+def bound(nbytes: float, flops: float, flops_per_s: float):
+    """(least ms, what bounds it): the bytes over HBM or the flops over the
+    given peak, whichever takes longer."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2):
     """Least time for one K3 call on these inputs: the larger of the bytes
     it must move (q, k, v rows it reads once, o written once: the visible
@@ -157,10 +224,19 @@ def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2):
     pairs = sum(min(tk, q_offset + t + 1) for t in range(tq))
     visible = min(tk, q_offset + tq)
     nbytes = elem_bytes * hd * (2 * b * hq * tq + 2 * b * hkv * visible)
-    flops = 4 * b * hq * hd * pairs
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    return bound(nbytes, 4 * b * hq * hd * pairs, BF16_FLOPS_PER_S)
+
+
+def k4_bound(b, t, h, hd, elem_bytes=2, state_in=True):
+    """Least time for one K4 call: the larger of the bytes it must move (r,
+    k, v in their dtype, w and u in f32 read once, o and the final state in
+    f32 written once, the carried state read once) over HBM, and its f32
+    flops (5 per (b, t, h, i, j): a multiply-add for o, a multiply and a
+    multiply-add for S) over the f32 peak."""
+    n = b * t * h * hd
+    nbytes = 3 * elem_bytes * n + 4 * n + 4 * n + 4 * h * hd \
+        + 4 * b * h * hd * hd * (2 if state_in else 1)
+    return bound(nbytes, 5 * n * hd, F32_FLOPS_PER_S)
 
 
 class Timed:
@@ -221,6 +297,19 @@ def top_kernels(spans, n: int = 8) -> list[str]:
             f"{name[:90]}" for name, t in rows]
 
 
+def requests(cfg, request_cls) -> list:
+    """The serving workload (numpy seed 0), with token ids under the
+    config's vocabulary."""
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(N_REQUESTS):
+        plen = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+        toks = rng.integers(0, cfg.vocab_size, size=plen)
+        home = int(rng.integers(0, REPLICAS)) if rng.random() < 0.67 else -1
+        reqs.append(request_cls(uid=i, tokens=toks, max_new=MAX_NEW, home_replica=home))
+    return reqs
+
+
 T_START = time.perf_counter()
 
 
@@ -242,6 +331,10 @@ def main() -> None:
     from repro_torch.kernels.jacobi import ops, ref
     from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
     from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+    from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Replica, Request, ServingEngine
     from repro_torch.stencil.jacobi import run_runtime_sweep
@@ -256,14 +349,26 @@ def main() -> None:
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
 
+    # the plain WKV version, counted where the port reaches it (the wrapper's
+    # CPU branch and ops' use_kernel=False branch); this script's own
+    # comparisons call wkv6_ref directly and are not counted
+    plain_wkv = {"calls": 0}
+
+    def counted_ref(*args, **kw):
+        plain_wkv["calls"] += 1
+        return wkv6_ref(*args, **kw)
+
+    wkv_kernel.wkv6_ref = wkv_ops.wkv6_ref = counted_ref
+
     def zero_counts():
         jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
-        flash_attention.launches = 0
+        flash_attention.launches = wkv6_cuda.launches = plain_wkv["calls"] = 0
 
     def counts():
         return {"jacobi_sweep": jacobi_sweep_cuda.launches,
                 "jacobi_two_step": jacobi_two_step_cuda.launches,
-                "flash_attention": flash_attention.launches}
+                "flash_attention": flash_attention.launches,
+                "wkv6": wkv6_cuda.launches, "wkv6_plain_calls": plain_wkv["calls"]}
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -279,7 +384,8 @@ def main() -> None:
     # -- 2. kernels against their plain versions --------------------------
     stamp(2)
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"jacobi_sweep": 0.0, "jacobi_two_step": 0.0, "flash_attention": 0.0}
+    errs = {"jacobi_sweep": 0.0, "jacobi_two_step": 0.0, "flash_attention": 0.0,
+            "wkv6": 0.0}
     for shape, (di, dj) in SWEEP_CASES:
         for c in (1 / 6, 0.25):
             f = torch.randn(shape, generator=gen, device=dev)
@@ -338,18 +444,8 @@ def main() -> None:
     k3_bf16 = max(k3_bf16, k3_check("bf16 (1, 2, 128, 32)", flash_attention(
         q, k, v, bq=64, bk=64), mha_ref(q, k, v), K3_BF16_TOL))
 
-    cfg = get_config(ARCH)
+    cfg = get_config(QWEN)
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    def requests():
-        rng = np.random.default_rng(0)
-        reqs = []
-        for i in range(N_REQUESTS):
-            plen = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
-            toks = rng.integers(0, cfg.vocab_size, size=plen)
-            home = int(rng.integers(0, REPLICAS)) if rng.random() < 0.67 else -1
-            reqs.append(Request(uid=i, tokens=toks, max_new=MAX_NEW, home_replica=home))
-        return reqs
 
     def model_qkv(tq, tk):
         """(B, T, H, hd) tensors passed as (B, H, T, hd) views, as the model does."""
@@ -367,7 +463,7 @@ def main() -> None:
             flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk),
             mha_ref(q, k, v, q_offset=qo), K3_BF16_TOL))
     # the drain's own prompts: each prefill, and the first decode step after it
-    for plen in sorted(len(r.tokens) for r in requests()):
+    for plen in sorted(len(r.tokens) for r in requests(cfg, Request)):
         for tq, tk, qo in ((plen, plen, 0), (1, MAX_SEQ, plen)):
             q, k, v = model_qkv(tq, tk)
             k3_bf16 = max(k3_bf16, k3_check(
@@ -379,6 +475,65 @@ def main() -> None:
     if k3_worst > 1.0:
         fail(f"K3 disagrees with mha_ref: an element used {k3_worst:.3f} of its limit")
     errs["flash_attention"] = max(k3_f32, k3_bf16)
+
+    print(f"K4 limit, per element of o and of the final state: |err| <= {K4_REL} "
+          f"x the shape's max |ref| (both sum the same f32 products in other orders)")
+    k4_worst = 0.0
+
+    def k4_check(label, got, want):
+        nonlocal k4_worst
+        for part, g, r in zip(("o", "sT"), got, want):
+            e = max_err(g, r)
+            top = float(r.abs().max())
+            share = e / (K4_REL * top)
+            k4_worst = max(k4_worst, share)
+            errs["wkv6"] = max(errs["wkv6"], e)
+            print(f"K4 {label} {part}: max_abs_err {e:.3e}, |ref| max {top:.4f} "
+                  f"median {float(r.abs().median()):.4f}, worst share of limit {share:.3f}")
+
+    for b, t, h, hdw in WKV_CASES:
+        r, k, v = (torch.randn((b, t, h, hdw), generator=gen, device=dev) * s
+                   for s in (1.0, 0.3, 0.3))
+        w = 0.8 + 0.199 * torch.rand((b, t, h, hdw), generator=gen, device=dev)
+        u = 0.3 * torch.randn((h, hdw), generator=gen, device=dev)
+        k4_check(f"f32 {(b, t, h, hdw)}", wkv6_cuda(r, k, v, w, u, chunk=32),
+                 wkv6_ref(r, k, v, w, u))
+        if (b, t, h, hdw) == (1, 128, 4, 32):     # the state carried across calls
+            half = [x[:, :64].contiguous() for x in (r, k, v, w)]
+            rest = [x[:, 64:].contiguous() for x in (r, k, v, w)]
+            o1, s1 = wkv6_cuda(*half, u, chunk=32)
+            o2, s2 = wkv6_cuda(*rest, u, chunk=32, s0=s1)
+            k4_check(f"f32 {(b, t, h, hdw)} in two calls",
+                     (torch.cat([o1, o2], 1), s2), wkv6_ref(r, k, v, w, u))
+
+    rcfg = get_config(RWKV)
+    rh, rhd = rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim
+
+    def wkv_model_inputs(t):
+        """rwkv6-3b's WKV inputs: bf16 r, k, v; f32 decays exp(-exp(d)) with
+        d around the model's -6; f32 u in [0, 0.5) as initialised."""
+        r, k, v = (torch.randn((1, t, rh, rhd), generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        decay = -6.0 + torch.randn((1, t, rh, rhd), generator=gen, device=dev)
+        u = 0.5 * torch.rand((rh, rhd), generator=gen, device=dev)
+        return r, k, v, torch.exp(-torch.exp(decay)), u
+
+    k4_inputs = {}
+    for name, t in K4_SHAPES:
+        k4_inputs[name] = wkv_model_inputs(t)
+    prefill_state = wkv6_ref(*k4_inputs["prefill_1024"])[1]
+    for name, t in K4_SHAPES:
+        s0 = prefill_state if t == 1 else torch.zeros_like(prefill_state)
+        want = wkv6_ref(*k4_inputs[name], s0)
+        k4_check(f"bf16 {name} {(1, t, rh, rhd)}" + (" from a prefill's state"
+                                                     if t == 1 else ""),
+                 wkv6_cuda(*k4_inputs[name], chunk=t, s0=s0.clone()), want)
+    for plen in sorted(len(r.tokens) for r in requests(rcfg, Request)):
+        x = wkv_model_inputs(plen)
+        k4_check(f"bf16 drain prefill {plen}", wkv6_cuda(*x, chunk=plen), wkv6_ref(*x))
+    torch.cuda.synchronize()
+    if k4_worst > 1.0:
+        fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
 
     # -- 3. the Jacobi main path, then jacobi_iterate ----------------------
     stamp(3)
@@ -413,142 +568,221 @@ def main() -> None:
         fail(f"jacobi_iterate: err {e_iter}, launches {iter_launches}")
     del it, want, plain
 
-    # -- 4. the serving path at full width ---------------------------------
-    stamp(4)
-    t0 = time.perf_counter()
-    model = build_model(cfg)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(leaf.numel() for leaf in leaves(params))
-    print(f"{ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {hq}/{hkv} heads of "
-          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded()}, {n_params} params "
-          f"in {model.dtype}, built in {time.perf_counter() - t0:.2f} s")
+    # -- 4-5. the serving paths at full width ------------------------------
+    def build(arch, cfg):
+        """``arch`` at full width, random weights from seed 0: (model, params)."""
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(leaf.numel() for leaf in leaves(params))
+        heads = (f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}"
+                 if "rwkv" in cfg.pattern else
+                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
+        print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, {heads}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_padded()}, {n_params} params in "
+              f"{model.dtype}, built in {time.perf_counter() - t0:.2f} s")
+        return model, params
 
-    def new_engine(policy):
-        engine = ServingEngine(model, params, num_replicas=REPLICAS,
-                               max_seq=MAX_SEQ, policy=policy)
-        for req in requests():
-            engine.submit(req)
-        return engine
+    def serve(arch, cfg, kernel_name):
+        """Build ``arch`` at full width, drain the workload under every
+        policy (checking that each drain launches ``kernel_name`` once per
+        layer per prefill and decode step, and no other kernel) and profile
+        one more drain.  Returns (model, params, metrics)."""
+        model, params = build(arch, cfg)
 
-    want_k3 = N_REQUESTS * cfg.num_layers * (1 + MAX_NEW)
-    prompt_tokens = sum(len(r.tokens) for r in requests())
-    print(f"serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
-          f"{MAX_NEW} new tokens each, {REPLICAS} replicas, max_seq {MAX_SEQ}")
-    # warm-up (cuBLAS handles, the caching allocator): one short request,
-    # so the first policy's times are not the process's first calls
-    warm = requests()[0]
-    warm.max_new = 2
-    Replica(model, params, MAX_SEQ).run(warm)
-    torch.cuda.synchronize()
-    outs, serve_metrics = {}, {}
-    for policy in POLICIES:
-        engine = new_engine(policy)
-        prefill_t, decode_t = Timed(model.prefill), Timed(model.decode_step)
-        for rep in engine.replicas:
-            rep._prefill, rep._decode = prefill_t, decode_t
+        def new_engine(policy):
+            engine = ServingEngine(model, params, num_replicas=REPLICAS,
+                                   max_seq=MAX_SEQ, policy=policy)
+            for req in requests(cfg, Request):
+                engine.submit(req)
+            return engine
+
+        want_n = N_REQUESTS * cfg.num_layers * (1 + MAX_NEW)
+
+        def path_ok(launched):
+            return launched[kernel_name] == want_n and not any(
+                n for name, n in launched.items() if name != kernel_name)
+
+        prompt_tokens = sum(len(r.tokens) for r in requests(cfg, Request))
+        print(f"{arch} serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
+              f"{MAX_NEW} new tokens each, {REPLICAS} replicas, max_seq {MAX_SEQ}; "
+              f"want {want_n} launches of {kernel_name} per drain")
+        # warm-up (cuBLAS handles, the caching allocator): one short request,
+        # so the first policy's times are not the process's first calls
+        warm = requests(cfg, Request)[0]
+        warm.max_new = 2
+        Replica(model, params, MAX_SEQ).run(warm)
+        torch.cuda.synchronize()
+        outs, metrics = {}, {}
+        for policy in POLICIES:
+            engine = new_engine(policy)
+            prefill_t, decode_t = Timed(model.prefill), Timed(model.decode_step)
+            for rep in engine.replicas:
+                rep._prefill, rep._decode = prefill_t, decode_t
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            done = engine.run_until_drained()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = counts()
+            outs[policy] = {r.uid: tuple(r.out_tokens) for r in done}
+            generated = sum(len(r.out_tokens) for r in done)
+            m = {"wall_s": wall, "tokens_per_s": generated / wall,
+                 "prefill_ms_per_request": float(np.mean(prefill_t.ms)),
+                 "decode_ms_per_token": float(np.mean(decode_t.ms)),
+                 "launches": launched, "stats": engine.stats}
+            metrics[policy] = m
+            print(f"{arch} {policy}: {engine.stats}, locality "
+                  f"{engine.stats.locality_fraction:.3f}")
+            print(f"{arch} {policy}: wall {wall:.4f} s, {generated} tokens, "
+                  f"{m['tokens_per_s']:.2f} tokens/s, prefill "
+                  f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
+                  f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
+            if not path_ok(launched):
+                fail(f"{arch} {policy}: launches {launched}, want {want_n} of "
+                     f"{kernel_name} and no other kernel or plain call")
+            if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
+                    not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values()
+                            for t in o):
+                fail(f"{arch} {policy}: served {len(done)} requests, {generated} tokens")
+        if not outs["locality"] == outs["round_robin"] == outs["single_queue"]:
+            fail(f"{arch}: the policies generated different tokens")
+        print(f"{arch}: tokens identical across {POLICIES}; request 0: "
+              f"{list(outs['locality'][0])}")
+
+        from torch.profiler import ProfilerActivity, profile
+        engine = new_engine("locality")
         torch.cuda.synchronize()
         zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.run_until_drained()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        prof_launches = counts()
         t0 = time.perf_counter()
-        done = engine.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launched = counts()
-        outs[policy] = {r.uid: tuple(r.out_tokens) for r in done}
-        generated = sum(len(r.out_tokens) for r in done)
-        m = {"wall_s": wall, "tokens_per_s": generated / wall,
-             "prefill_ms_per_request": float(np.mean(prefill_t.ms)),
-             "decode_ms_per_token": float(np.mean(decode_t.ms)),
-             "k3_launches": launched["flash_attention"],
-             "stats": engine.stats}
-        serve_metrics[policy] = m
-        print(f"{policy}: {engine.stats}, locality {engine.stats.locality_fraction:.3f}")
-        print(f"{policy}: wall {wall:.4f} s, {generated} tokens, "
-              f"{m['tokens_per_s']:.2f} tokens/s, prefill "
-              f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
-              f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
-        if launched["flash_attention"] != want_k3 or launched["jacobi_sweep"] \
-                or launched["jacobi_two_step"]:
-            fail(f"{policy}: launches {launched}, want {want_k3} of K3 and no other")
-        if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
-                not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values() for t in o):
-            fail(f"{policy}: served {len(done)} requests, {generated} tokens")
-    if not outs["locality"] == outs["round_robin"] == outs["single_queue"]:
-        fail("the policies generated different tokens")
-    print(f"tokens identical across {POLICIES}; request 0: {list(outs['locality'][0])}")
+        spans = device_spans(prof)
+        busy = busy_ms(spans)
+        print(f"profiler: {len(spans)} device records read in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if busy <= 0 or not path_ok(prof_launches):
+            fail(f"{arch} profiled drain: device busy {busy} ms, launches {prof_launches}")
+        idle_share = 1 - busy / prof_wall_ms
+        print(f"{arch} profiled drain (locality): wall {prof_wall_ms:.4f} ms, device "
+              f"busy {busy:.4f} ms, idle share {idle_share:.4f}")
+        print("device time by function over the profiled drain:")
+        print("\n".join(top_kernels(spans)))
+        del engine, prof, spans
+        result = {p: {k: v for k, v in m.items() if k != "stats"}
+                  | {"stats": vars(m["stats"])} for p, m in metrics.items()}
+        result.update(idle_share=idle_share)
+        return model, params, result
 
-    from torch.profiler import ProfilerActivity, profile
-    engine = new_engine("locality")
-    torch.cuda.synchronize()
-    zero_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.run_until_drained()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    prof_launches = counts()
-    t0 = time.perf_counter()
-    spans = device_spans(prof)
-    busy = busy_ms(spans)
-    print(f"profiler: {len(spans)} device records read in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if busy <= 0 or prof_launches["flash_attention"] != want_k3:
-        fail(f"profiled drain: device busy {busy} ms, launches {prof_launches}")
-    idle_share = 1 - busy / prof_wall_ms
-    print(f"profiled drain (locality): wall {prof_wall_ms:.4f} ms, device busy "
-          f"{busy:.4f} ms, idle share {idle_share:.4f}")
-    print("device time by function over the profiled drain:")
-    print("\n".join(top_kernels(spans)))
-    del engine, prof, spans
+    def teacher_forced(arch, cfg, model, params, kernel_name, faults=None):
+        """The kernel path against the plain path (``use_kernel=False``) on
+        request 0, teacher-forced with the plain path's greedy tokens: the
+        prefill's and every decode step's logits must agree within
+        ``LOGITS_ATOL[arch]``.  Each of ``faults`` (name -> a plain WKV
+        version with a planted error) runs the plain path the same way and
+        must differ from it by more than the limit."""
+        req = requests(cfg, Request)[0]
+        toks = torch.as_tensor(req.tokens, dtype=torch.int64, device=dev)[None]
+        plain_model = build_model(cfg, use_kernel=False)
 
-    # -- 5. kernel path against plain path, teacher-forced -------------------
+        def run(m, forced=None):
+            caches = m.init_cache(1, MAX_SEQ)
+            logits, caches = m.prefill(params, {"tokens": toks}, caches)
+            steps, chosen, pos = [logits[:, -1].float()], [], toks.shape[1]
+            for i in range(MAX_NEW):
+                cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                chosen.append(int(cur[0, 0]))
+                if forced is not None:
+                    cur = torch.full_like(cur, forced[i])
+                logits, caches = m.decode_step(params, cur, pos, caches)
+                steps.append(logits[:, -1].float())
+                pos += 1
+            return torch.cat(steps), chosen
+
+        zero_counts()
+        plain_logits, plain_chosen = run(plain_model)
+        if counts()[kernel_name]:
+            fail(f"the plain path launched {kernel_name}")
+        zero_counts()
+        kern_logits, kern_chosen = run(model, forced=plain_chosen)
+        if counts()[kernel_name] != cfg.num_layers * (1 + MAX_NEW) or \
+                counts()["wkv6_plain_calls"]:
+            fail(f"the teacher-forced kernel path launched {counts()}")
+        diff = (kern_logits - plain_logits).abs().amax(dim=-1)
+        agree = sum(a == b for a, b in zip(kern_chosen, plain_chosen))
+        limit = LOGITS_ATOL[arch]
+        print(f"{arch} teacher-forced logits in {model.dtype}, kernel vs plain path "
+              f"({len(req.tokens)} prompt tokens, {1 + MAX_NEW} steps, |logits| up "
+              f"to {float(plain_logits.abs().max()):.3f}): max_abs_err "
+              f"{float(diff.max()):.6f} (prefill {float(diff[0]):.6f}), limit "
+              f"{limit}; greedy choices agree {agree}/{MAX_NEW}")
+        fault_gaps = {}
+        for name, fn in (faults or {}).items():
+            wkv_ops.wkv6_ref = fn
+            fault_logits, _ = run(plain_model, forced=plain_chosen)
+            wkv_ops.wkv6_ref = counted_ref
+            fault_gaps[name] = float((fault_logits - plain_logits).abs().max())
+            print(f"{arch} planted fault ({name}) vs plain path: max_abs_err "
+                  f"{fault_gaps[name]:.6f}, {fault_gaps[name] / limit:.1f}x the limit")
+        if not bool(kern_logits.isfinite().all()) or float(diff.max()) > limit:
+            fail(f"{arch}: kernel path logits disagree with the plain path: "
+                 f"{diff.tolist()}")
+        if any(gap <= limit for gap in fault_gaps.values()):
+            fail(f"{arch}: the limit {limit} would not see a planted fault: {fault_gaps}")
+        del plain_model
+        return {"teacher_forced_dtype": str(model.dtype).split(".")[-1],
+                "teacher_forced_max_abs_err": float(diff.max()),
+                "teacher_forced_limit": limit, "greedy_agree": agree,
+                "planted_faults": fault_gaps}
+
+    stamp(4)
+    serving = {}
+    model, params, serving[QWEN] = serve(QWEN, cfg, "flash_attention")
+    serving[QWEN].update(teacher_forced(QWEN, cfg, model, params, "flash_attention"))
+    del model, params
+    torch.cuda.empty_cache()
+
     stamp(5)
-    req = requests()[0]
-    toks = torch.as_tensor(req.tokens, dtype=torch.int64, device=dev)[None]
-    plain_model = build_model(cfg, use_kernel=False)
-
-    def run(m, forced=None):
-        caches = m.init_cache(1, MAX_SEQ)
-        logits, caches = m.prefill(params, {"tokens": toks}, caches)
-        steps, chosen, pos = [logits[:, -1].float()], [], toks.shape[1]
-        for i in range(MAX_NEW):
-            cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
-            chosen.append(int(cur[0, 0]))
-            if forced is not None:
-                cur = torch.full_like(cur, forced[i])
-            logits, caches = m.decode_step(params, cur, pos, caches)
-            steps.append(logits[:, -1].float())
-            pos += 1
-        return torch.cat(steps), chosen
-
-    zero_counts()
-    plain_logits, plain_chosen = run(plain_model)
-    if flash_attention.launches:
-        fail("the plain path launched K3")
-    kern_logits, kern_chosen = run(model, forced=plain_chosen)
-    if flash_attention.launches != cfg.num_layers * (1 + MAX_NEW):
-        fail(f"the teacher-forced kernel path launched K3 {flash_attention.launches} times")
-    diff = (kern_logits - plain_logits).abs().amax(dim=-1)
-    agree = sum(a == b for a, b in zip(kern_chosen, plain_chosen))
-    print(f"teacher-forced logits, kernel vs plain path ({1 + MAX_NEW} steps, "
-          f"|logits| up to {float(plain_logits.abs().max()):.3f}): max_abs_err "
-          f"{float(diff.max()):.4f} (prefill {float(diff[0]):.4f}), limit "
-          f"{LOGITS_ATOL} (bf16 ulp 2^-6 at |logits| 2-4; attention rounds at "
-          f"other points in the two paths); greedy choices agree {agree}/{MAX_NEW}")
-    if not bool(kern_logits.isfinite().all()) or float(diff.max()) > LOGITS_ATOL:
-        fail(f"kernel path logits disagree with the plain path: {diff.tolist()}")
-    del plain_model
+    model, params, serving[RWKV] = serve(RWKV, rcfg, "wkv6")
+    # K4 on a decode step from the state a real prefill left in the cache
+    caches = model.init_cache(1, MAX_SEQ)
+    toks = torch.as_tensor(requests(rcfg, Request)[0].tokens, device=dev)[None]
+    model.prefill(params, {"tokens": toks}, caches)
+    for layer in (0, rcfg.num_layers - 1):
+        s0 = caches[layer]["s"]
+        r, k, v, w, u = wkv_model_inputs(1)
+        k4_check(f"bf16 decode from layer {layer}'s prefill state (|s| max "
+                 f"{float(s0.abs().max()):.3f})",
+                 wkv6_cuda(r, k, v, w, u, chunk=1, s0=s0.clone()),
+                 wkv6_ref(r, k, v, w, u, s0))
+    torch.cuda.synchronize()
+    if k4_worst > 1.0:
+        fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
+    del model, params, caches
+    torch.cuda.empty_cache()
+    # the teacher-forced comparison on an f32 build, with two planted faults
+    f32cfg = dataclasses.replace(rcfg, dtype="float32")
+    model, params = build(RWKV, f32cfg)
+    faults = {
+        "u dropped": lambda r, k, v, w, u, s0=None: wkv6_ref(
+            r, k, v, w, torch.zeros_like(u), s0),
+        "state not carried": lambda r, k, v, w, u, s0=None: wkv6_ref(r, k, v, w, u)}
+    serving[RWKV].update(teacher_forced(RWKV, f32cfg, model, params, "wkv6", faults))
+    del model, params
+    torch.cuda.empty_cache()
 
     # -- 6. timing ---------------------------------------------------------
     stamp(6)
     sites = f.numel()
     io_bytes = 2 * 4 * sites                     # read f once, write once
-    bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = {"jacobi_sweep": 6 * sites / F32_FLOPS_PER_S * 1e3,   # 5 adds, 1 mul
-              "jacobi_two_step": 12 * sites / F32_FLOPS_PER_S * 1e3}
-    bound = {k: max(bytes_ms, v) for k, v in ops_ms.items()}
-    bound_by = {k: "bytes" if bytes_ms >= v else "operations"
-                for k, v in ops_ms.items()}
+    jb = {"jacobi_sweep": bound(io_bytes, 6 * sites, F32_FLOPS_PER_S),    # 5 adds, 1 mul
+          "jacobi_two_step": bound(io_bytes, 12 * sites, F32_FLOPS_PER_S)}
     buf = torch.empty_like(f)
     ms = {"jacobi_sweep": time_ms(lambda: jacobi_sweep_cuda(f, out=buf), 20),
           "jacobi_two_step": time_ms(lambda: jacobi_two_step_cuda(f, out=buf), 20)}
@@ -579,35 +813,17 @@ def main() -> None:
     for name in ("jacobi_sweep", "jacobi_two_step"):
         gbs = io_bytes / (ms[name] * 1e-3) / 1e9
         print(f"{name}: {ms[name]:.4f} ms, {gbs:.1f} GB/s, bound "
-              f"{bound[name]:.4f} ms ({bound[name] / ms[name]:.1%} of bound), "
+              f"{jb[name][0]:.4f} ms ({jb[name][0] / ms[name]:.1%} of bound), "
               f"plain {plain_ms[name]:.4f} ms, library {library_ms[name]:.4f} ms")
     print(f"run_runtime_sweep: {sweep_ms:.4f} ms, "
           f"{io_bytes / (sweep_ms * 1e-3) / 1e9:.1f} GB/s, bound "
-          f"{bound['jacobi_sweep']:.4f} ms "
-          f"({bound['jacobi_sweep'] / sweep_ms:.1%} of bound); one slab launch "
+          f"{jb['jacobi_sweep'][0]:.4f} ms "
+          f"({jb['jacobi_sweep'][0] / sweep_ms:.1%} of bound); one slab launch "
           f"{slab_ms:.4f} ms x {nslabs} = {slab_ms * nslabs:.4f} ms of device time")
     del f, buf, x
 
-    # K3 at the serving path's shapes.  Decode is far below launch latency,
-    # so back-to-back calls would time the host: each timed call is queued
-    # behind a 2 ms device sleep, so the events measure the device alone.
+    # K3 at the serving path's shapes (yardstick: SDPA, never called by the port)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def device_ms(fn, iters=20):
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(2_000_000)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
-
     k3 = {}
     for name, tq, tk, qo in K3_SHAPES:
         q, k, v, _ = k3_inputs[name]
@@ -629,6 +845,22 @@ def main() -> None:
               f"({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
               f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
 
+    # K4 at rwkv6-3b's shapes, from a carried state written in place as the
+    # model does (no PyTorch call computes the WKV recurrence: no yardstick)
+    k4 = {}
+    for name, t in K4_SHAPES:
+        r, k, v, w, u = k4_inputs[name]
+        s0 = prefill_state.clone()
+        bnd, by = k4_bound(1, t, rh, rhd)
+        k4[name] = {
+            "ms": device_ms(lambda: wkv6_cuda(r, k, v, w, u, chunk=t, s0=s0)),
+            "plain_ms": device_ms(lambda: wkv6_ref(r, k, v, w, u, s0), 3),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        m = k4[name]
+        print(f"wkv6 {name} {(1, t, rh, rhd)}: {m['ms']:.4f} ms, bound {bnd:.6f} ms "
+              f"by {by} ({bnd / m['ms']:.2%} of bound), plain {m['plain_ms']:.4f} ms, "
+              f"library: none (no PyTorch call computes the WKV recurrence)")
+
     # -- 7. result lines --------------------------------------------------
     stamp(7)
     kernels = []
@@ -641,24 +873,24 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "src/repro_torch/csrc/jacobi.cu",
             "replaces": replaces, "path": path,
             "launches": path_launches[name], "max_abs_err": errs[name],
-            "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bound[name],
-            "bound_by": bound_by[name], "library_ms": library_ms[name]})
-    head = k3[K3_HEADLINE]
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
-        "path": f"ServingEngine.run_until_drained ({ARCH}, locality)",
-        "launches": serve_metrics["locality"]["k3_launches"],
-        "max_abs_err": errs["flash_attention"], "limit_share": k3_worst,
-        "shape": K3_HEADLINE,
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shapes": k3})
-    serving = {p: {k: v for k, v in m.items() if k != "stats"} | {
-        "stats": vars(m["stats"])} for p, m in serve_metrics.items()}
-    print(json.dumps({"serving": serving, "idle_share": idle_share,
-                      "teacher_forced_max_abs_err": float(diff.max())}))
+            "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": jb[name][0],
+            "bound_by": jb[name][1], "library_ms": library_ms[name]})
+    for name, source, replaces, arch, worst, shapes, headline in (
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:26", QWEN, k3_worst, k3,
+             K3_HEADLINE),
+            ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/rwkv6/kernel.py:27", RWKV, k4_worst, k4, K4_HEADLINE)):
+        head = shapes[headline]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "path": f"ServingEngine.run_until_drained ({arch}, locality)",
+            "launches": serving[arch]["locality"]["launches"][name],
+            "max_abs_err": errs[name], "limit_share": worst, "shape": headline,
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": shapes})
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

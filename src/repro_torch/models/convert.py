@@ -21,10 +21,15 @@ from ..configs.base import ModelConfig
 from .common import Params
 from .transformer import check_ported
 
-# leaf names of the reference's _LEAF_AXES (models/model.py) that this
-# slice's layers use, plus the norms' own leaves
+# leaf names of the reference's _LEAF_AXES (models/model.py) that the
+# ported layers use (attention and dense MLP, RWKV), plus the norms' own
+# leaves
 LEAVES = frozenset({"tok", "head", "scale", "bias", "wq", "wk", "wv", "wo",
-                    "bq", "bk", "bv", "w_up", "w_gate", "w_down"})
+                    "bq", "bk", "bv", "w_up", "w_gate", "w_down",
+                    "w_r", "w_k", "w_v", "w_g", "w_o", "decay_lora_a",
+                    "decay_lora_b", "mix_lora_a", "mix_lora_b", "mix_base",
+                    "decay_base", "u", "gn_scale", "gn_bias", "w_ck", "w_cv",
+                    "w_cr", "cmix_k", "cmix_r"})
 
 
 def _tensor(a: Any, device) -> torch.Tensor:

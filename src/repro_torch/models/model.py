@@ -12,8 +12,8 @@ interface, so the serving engine ports line for line:
 ``params`` is a dict of tensors (the stack a list of per-layer dicts, see
 ``transformer``).  The model runs eagerly on its device: ``cuda`` unless
 the caller passes ``device="cpu"``, and it raises without a card.  On the
-card attention runs in K3 unless ``use_kernel=False`` asks for the plain
-versions.  Whisper's encoder and the VLM's vision tokens are not ported
+card attention runs in K3 and the RWKV recurrence in K4 unless
+``use_kernel=False`` asks for the plain versions.  Whisper's encoder and the VLM's vision tokens are not ported
 yet (ROADMAP D).
 """
 from __future__ import annotations

@@ -8,8 +8,9 @@ layer order (``cfg.layer_kinds()``), and caches are a list of per-layer
 dicts beside it.  ``repro_torch.models.convert`` unstacks the reference's
 ``{"groups", "remainder"}`` tree into that list.
 
-Only the "full" kind with a dense MLP is ported so far; the other kinds,
-MLA and MoE raise ``NotImplementedError`` naming their ROADMAP item.
+The "full" kind with a dense MLP and the "rwkv" kind are ported so far;
+the other kinds, MLA and MoE raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ from ..configs.base import ModelConfig
 from .attention import attention_block, attn_init
 from .common import Params, layer_norm, layer_norm_init, rms_norm, rms_norm_init
 from .mlp import mlp, mlp_init
+from .rwkv import rwkv_channel_mix, rwkv_init, rwkv_time_mix
 
 _NOT_PORTED = {
     "local": "ROADMAP B8 (sliding-window layers and their ring-buffer cache)",
     "cross": "ROADMAP B8 (cross-attention layers)",
     "rglru": "ROADMAP C2 (RG-LRU blocks)",
-    "rwkv": "ROADMAP C1 (RWKV6 blocks)",
 }
 
 
@@ -35,6 +36,8 @@ def check_ported(cfg: ModelConfig, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+    if kind == "rwkv":
+        return
     if kind != "full":
         raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.mla is not None:
@@ -60,6 +63,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype: torch.dtype = torch.float32) -> Params:
     check_ported(cfg, kind)
     d = cfg.d_model
+    if kind == "rwkv":
+        # channel-mix params live inside the tmix dict (shared init fn)
+        return {"ln1": _norm_init(cfg, d, dtype, gen.device),
+                "tmix": rwkv_init(gen, cfg, dtype),
+                "ln2": _norm_init(cfg, d, dtype, gen.device)}
     gated = cfg.act in ("silu", "gelu")
     return {"ln1": _norm_init(cfg, d, dtype, gen.device),
             "attn": attn_init(gen, cfg, dtype=dtype),
@@ -71,6 +79,11 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      dtype) -> dict[str, tuple[tuple[int, ...], Any]]:
     """``{name: (shape, dtype)}`` of one layer's decode cache."""
     check_ported(cfg, kind)
+    if kind == "rwkv":
+        d, hd = cfg.d_model, cfg.rwkv_head_dim
+        return {"s": ((batch, d // hd, hd, hd), torch.float32),
+                "x_tm": ((batch, d), dtype),
+                "x_cm": ((batch, d), dtype)}
     kvd = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": (kvd, dtype), "v": (kvd, dtype)}
 
@@ -82,8 +95,19 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
 
     ``aux_loss`` is the MoE router's loss in the reference; the ported dense
-    blocks have none and return 0.0."""
+    and RWKV blocks have none and return 0.0."""
     check_ported(cfg, kind)
+    if kind == "rwkv":
+        h, c1 = rwkv_time_mix(p["tmix"], _norm(cfg, p["ln1"], x), cfg,
+                              cache=None if cache is None else
+                              {"s": cache["s"], "x_tm": cache["x_tm"]},
+                              use_kernel=use_kernel)
+        x = x + h
+        h, c2 = rwkv_channel_mix(p["tmix"], _norm(cfg, p["ln2"], x), cfg,
+                                 cache=None if cache is None else
+                                 {"x_cm": cache["x_cm"]})
+        x = x + h
+        return x, None if cache is None else {**c1, **c2}, 0.0
     attn_cache = None
     if cache is not None:
         attn_cache = {k: v for k, v in cache.items() if k in ("k", "v")}

@@ -286,10 +286,11 @@ class TestModel:
             build_model(pair[0])
 
 
-# every registered architecture but the dense full-attention ones
+# every registered architecture but the dense full-attention ones and
+# rwkv6-3b (tests/test_torch_rwkv.py)
 UNPORTED = ["gemma3-1b", "llama-3.2-vision-90b", "minicpm3-4b",
             "phi3.5-moe-42b-a6.6b", "qwen3-moe-30b-a3b", "recurrentgemma-9b",
-            "rwkv6-3b", "whisper-base"]
+            "whisper-base"]
 
 
 class TestConverter:

@@ -1,15 +1,17 @@
 """The port's serving engine (``repro_torch.serving.engine``) and its driver
 (``repro_torch.launch.serve``) held against the JAX package on the CPU.
 
-Both engines serve the reduced qwen2-0.5b with the same parameters (the
-reference's, carried across by ``params_from_jax``) and the same requests
-(numpy draws).  The scheduler is the same code in both packages, so
+Both engines serve the same reduced model, qwen2-0.5b or rwkv6-3b (the
+tests against the reference take the architecture as a parameter), with
+the same parameters (the reference's, carried across by
+``params_from_jax``) and the same requests (numpy draws).  The scheduler is the same code in both packages, so
 ``ServeStats`` and recorded traces must be equal, and greedy decoding of
 f32 logits that agree to 1e-4 must pick exactly the same tokens.  Also
 mirrors ``tests/test_serving.py`` on the port alone.
 """
 import contextlib
 import dataclasses
+import functools
 import io
 import sys
 
@@ -31,15 +33,23 @@ from repro_torch.models.model import build_model
 from repro_torch.serving.engine import POLICIES, Request, ServingEngine
 
 
-@pytest.fixture(scope="module")
-def models():
+ARCHS = ["qwen2-0.5b", "rwkv6-3b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
     """(cfg, JAX model, JAX params, port model, port params), reduced."""
-    cfg = reduce_config(get_config("qwen2-0.5b"))
-    jm = jax_build_model(jax_reduce_config(jax_get_config("qwen2-0.5b")), max_pos=96)
+    cfg = reduce_config(get_config(arch))
+    jm = jax_build_model(jax_reduce_config(jax_get_config(arch)), max_pos=96)
     jp = jm.init_params(jax.random.key(0))
     pm = build_model(cfg, max_pos=96, device="cpu")
     pp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
     return cfg, jm, jp, pm, pp
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("qwen2-0.5b")
 
 
 def _requests(cls, cfg, n=8, replicas=2, seed=0, max_new=4):
@@ -60,10 +70,11 @@ def _serve(engine, reqs):
 
 
 class TestAgainstReference:
+    @pytest.mark.parametrize("arch", ARCHS)
     @pytest.mark.parametrize("policy", POLICIES)
     @pytest.mark.parametrize("replicas,batch,seed", [(2, 1, 0), (3, 2, 5)])
-    def test_same_tokens_and_stats(self, models, policy, replicas, batch, seed):
-        cfg, jm, jp, pm, pp = models
+    def test_same_tokens_and_stats(self, arch, policy, replicas, batch, seed):
+        cfg, jm, jp, pm, pp = _models(arch)
         kw = dict(num_replicas=replicas, max_seq=64, policy=policy, batch=batch)
         want, wstats = _serve(jax_engine.ServingEngine(jm, jp, **kw),
                               _requests(jax_engine.Request, cfg, 10, replicas, seed))
@@ -72,8 +83,9 @@ class TestAgainstReference:
         assert got == want
         assert dataclasses.asdict(gstats) == dataclasses.asdict(wstats)
 
-    def test_recorded_traces_agree(self, models):
-        cfg, jm, jp, pm, pp = models
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_recorded_traces_agree(self, arch):
+        cfg, jm, jp, pm, pp = _models(arch)
         traces = []
         for eng, cls in ((jax_engine.ServingEngine(jm, jp, num_replicas=2, max_seq=64,
                                                    trace=rtrace.TraceRecorder()),
@@ -182,10 +194,12 @@ class TestEntryPoints:
         assert [(r.uid, r.tokens.tolist(), r.max_new, r.home_replica) for r in got] == \
             [(r.uid, r.tokens.tolist(), r.max_new, r.home_replica) for r in want]
 
-    def test_driver_prints_the_reference_stats(self, monkeypatch):
+    @pytest.mark.parametrize("arch", ARCHS)
+    def test_driver_prints_the_reference_stats(self, monkeypatch, arch):
         """The random weights differ (torch.Generator vs jax.random), so the
         tokens do too; the router's statistics line must not."""
-        args = ["--requests", "6", "--replicas", "2", "--policy", "round_robin"]
+        args = ["--arch", arch, "--requests", "6", "--replicas", "2",
+                "--policy", "round_robin"]
         out = {}
         for name, run in (("jax", jax_serve.main),
                           ("port", lambda: serve.main(args + ["--device", "cpu"]))):
