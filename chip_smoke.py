@@ -27,7 +27,18 @@ failure:
    calls) and at rwkv6-3b's 40 heads of 64 with bf16 r, k, v: prefill
    128 and 1024 and each of the rwkv6-3b drain's 12 prompt lengths, and
    decode (T = 1) from a carried state.  Limit, per element: 1e-5 of the
-   shape's largest |ref| (both sum the same f32 products in other orders);
+   shape's largest |ref| (both sum the same f32 products in other orders).
+   K5 (the RG-LRU scan) against ``rglru_scan_ref`` bit for bit (limit: 0
+   unequal elements; each step is one rounded multiply and one rounded
+   add in both), at the shapes of ``tests/test_kernels.py``, at
+   recurrentgemma-9b's width 4096 at prefill 128 and 1024 and at each of
+   its drain's 12 prompt lengths, and at decode (T = 1) from a carried
+   state.  K3 at recurrentgemma-9b's shapes in bf16, 16 query heads over
+   one kv head of 256, as the model's strided views: prefill with window
+   2048 at 128, 1024 and the drain's lengths, decode over a 2048-slot ring
+   at positions 0, 517 and 2047, and over a wrapped ring at 2100 and 4095
+   (``window=0``, ``q_offset=pos``) against ``decode_attention(ring=True)``
+   on the same values in f32, rounded once to bf16; the bf16 limit above;
 3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
    (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
    sweep, with the launch counts zeroed before and read after; then
@@ -43,8 +54,9 @@ failure:
    times and no other kernel, the tokens must be identical across
    policies, and each policy's ``ServeStats``, wall time, tokens per
    second, prefill ms per request and decode ms per token are printed; one
-   more drain under ``torch.profiler`` gives the card's idle share and its
-   top device functions.  Then the kernel path against the plain path: one
+   more drain under ``torch.profiler`` gives the card's idle share, its
+   top device functions and each of the path's kernels' device time per
+   call in the drain.  Then the kernel path against the plain path: one
    request, teacher-forced with the tokens the plain path
    (``use_kernel=False``) chose, through both; the prefill's and every
    decode step's logits must agree within the bf16 limit printed beside
@@ -58,13 +70,26 @@ failure:
    (12.4 GB), whose logits carry no bf16 rounding of the residual stream;
    two planted faults in the plain path (u dropped, the state not carried
    across decode steps) must each exceed the limit;
+5b. the same drains on full-width recurrentgemma-9b in bf16 (38 layers:
+   26 rglru and 12 local attention with a 2048-token window, d 4096, 16
+   q / 1 kv heads of 256, 8.58 B parameters): K5 must launch
+   12 x 26 x 33 = 10296 times and K3 12 x 12 x 33 = 4752 times per drain,
+   and the plain RG-LRU scan never; K5 is also held against
+   ``rglru_scan_ref`` on a decode step from the state a real prefill left
+   in the cache (first and last rglru layer).  Its teacher-forced
+   comparison runs on an f32 build (34.3 GB, after every earlier model is
+   freed; the peak device memory is printed), with two planted faults in
+   the plain path (the RG-LRU state not carried across decode steps; the
+   conv history not carried) that must each exceed the limit;
 6. time each kernel, its plain version and the library's yardstick with
    CUDA events, beside its bound: K1 and K2 at the full lattice (yardstick
    ``conv3d`` with the six-point cross) and the runtime sweep; K3 at the
    serving path's prefill and decode shapes (yardstick
    ``scaled_dot_product_attention``, which the port never calls); K4 at
    rwkv6-3b's prefill 1024 and 128 and decode (no PyTorch call computes
-   the WKV recurrence, so it has no yardstick);
+   the WKV recurrence, so it has no yardstick); K5 at recurrentgemma-9b's
+   prefill 1024 and 128 and decode (no yardstick either); K3 at
+   recurrentgemma-9b's hd-256 prefill and decode shapes beside SDPA;
 7. print the ``serving`` and ``kernels`` JSON lines, the card's name and
    power limit, and last the ``{"ok": true, ...}`` line.
 
@@ -74,6 +99,7 @@ the port's sources are not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -119,7 +145,7 @@ K4_REL = 1e-5
 N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = 12, 3, 32, 2048
 PROMPT_LEN = (128, 1024)
 POLICIES = ("locality", "round_robin", "single_queue")
-QWEN, RWKV = "qwen2-0.5b", "rwkv6-3b"
+QWEN, RWKV, GRIFFIN = "qwen2-0.5b", "rwkv6-3b", "recurrentgemma-9b"
 # K3 at qwen2-0.5b's shapes: (name, Tq, Tk, q_offset)
 K3_SHAPES = [("prefill_128", 128, 128, 0), ("prefill_1024", 1024, 1024, 0),
              ("decode_0", 1, 2048, 0), ("decode_517", 1, 2048, 517),
@@ -129,6 +155,21 @@ K3_HEADLINE = "decode_517"    # 97 % of the path's launches are decode steps
 # place, as the model calls it
 K4_SHAPES = [("prefill_128", 128), ("prefill_1024", 1024), ("decode", 1)]
 K4_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
+# tests/test_kernels.py's RG-LRU cases: b, t, w, chunk
+RGLRU_CASES = [(2, 128, 64, 32), (1, 256, 128, 128), (3, 64, 32, 64)]
+# K5 at recurrentgemma-9b's width (name, T), each from a carried state as the
+# model calls it (a prefill's state is its zero cache)
+K5_SHAPES = [("prefill_128", 128), ("prefill_1024", 1024), ("decode", 1)]
+K5_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
+# K3 at recurrentgemma-9b's shapes: (name, Tq, Tk, q_offset, window).  Prefill
+# passes the local layers' window; decode reads the 2048-slot ring with no
+# window (its slots are not in position order); the drain never wraps the
+# ring (1024 + 32 < 2048), so the wrapped positions are checked apart
+K3_GRIFFIN_SHAPES = [("prefill_128", 128, 128, 0, 2048),
+                     ("prefill_1024", 1024, 1024, 0, 2048),
+                     ("decode_0", 1, 2048, 0, 0), ("decode_517", 1, 2048, 517, 0),
+                     ("decode_2047", 1, 2048, 2047, 0)]
+K3_RING_WRAPPED = (2100, 4095)
 # kernel path vs plain path, teacher-forced.  qwen2-0.5b, bf16 logits: logits
 # of magnitude ~3 have an ulp of 2^-6; attention rounded at other points
 # (f32 softmax in K3, bf16 scores and weights in the plain path) moves them
@@ -138,13 +179,27 @@ K4_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
 # the H100 was 0.0458 at |logits| 4.9, against 1.96 with u dropped and 7.50
 # with the state not carried across decode steps.  The limit sits 2.7x above
 # the sound reading and 15x below the nearer fault; both faults run in every
-# call and must exceed it
-LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125}
+# call and must exceed it.  recurrentgemma-9b, on an f32 build: K5 equals
+# the plain scan bit for bit, so the paths differ only in K3's f32 sums
+# (12 local layers).  Measured on the H100: 2.5e-5 at |logits| 26, against
+# 5.25 with the RG-LRU state not carried across decode steps and 4.96 with
+# the conv history not carried.  The limit sits 40x above the sound reading
+# and 5000x below the nearer fault; both faults run in every call
+LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3}
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def free_device_memory() -> None:
+    """Return freed tensors to the card.  A serving engine and its executor
+    form a reference cycle (the executor's handler is a bound method of the
+    engine) that keeps the model's parameters alive until the cycle
+    collector runs, so collect first."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -313,7 +368,7 @@ def requests(cfg, request_cls) -> list:
 T_START = time.perf_counter()
 
 
-def stamp(phase: int) -> None:
+def stamp(phase) -> None:
     print(f"[{time.perf_counter() - T_START:.1f} s] phase {phase}", flush=True)
 
 
@@ -331,10 +386,16 @@ def main() -> None:
     from repro_torch.kernels.jacobi import ops, ref
     from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
     from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+    from repro_torch.kernels.rglru import kernel as rglru_kernel
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.rglru.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
     from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.models import rglru as rglru_model
+    from repro_torch.models.attention import decode_attention
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import Replica, Request, ServingEngine
     from repro_torch.stencil.jacobi import run_runtime_sweep
@@ -359,16 +420,44 @@ def main() -> None:
         return wkv6_ref(*args, **kw)
 
     wkv_kernel.wkv6_ref = wkv_ops.wkv6_ref = counted_ref
+    # the plain RG-LRU scan likewise
+    plain_rglru = {"calls": 0}
+
+    def counted_rglru_ref(*args, **kw):
+        plain_rglru["calls"] += 1
+        return rglru_scan_ref(*args, **kw)
+
+    rglru_kernel.rglru_scan_ref = rglru_ops.rglru_scan_ref = counted_rglru_ref
 
     def zero_counts():
         jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
         flash_attention.launches = wkv6_cuda.launches = plain_wkv["calls"] = 0
+        rglru_scan_cuda.launches = plain_rglru["calls"] = 0
 
     def counts():
         return {"jacobi_sweep": jacobi_sweep_cuda.launches,
                 "jacobi_two_step": jacobi_two_step_cuda.launches,
                 "flash_attention": flash_attention.launches,
-                "wkv6": wkv6_cuda.launches, "wkv6_plain_calls": plain_wkv["calls"]}
+                "wkv6": wkv6_cuda.launches, "wkv6_plain_calls": plain_wkv["calls"],
+                "rglru": rglru_scan_cuda.launches,
+                "rglru_plain_calls": plain_rglru["calls"]}
+
+    def path_launches(cfg, n_requests):
+        """The launches of each kernel that serving ``n_requests`` requests
+        of ``cfg`` must make: one per layer of its kind per prefill and per
+        decode step."""
+        kernel_of = {"full": "flash_attention", "local": "flash_attention",
+                     "rwkv": "wkv6", "rglru": "rglru"}
+        want: dict[str, int] = {}
+        for kind in cfg.layer_kinds():
+            name = kernel_of[kind]
+            want[name] = want.get(name, 0) + n_requests * (1 + MAX_NEW)
+        return want
+
+    def path_ok(launched, want):
+        """Every kernel launched exactly as often as ``want`` says (zero for
+        the rest) and no plain version called."""
+        return all(n == want.get(name, 0) for name, n in launched.items())
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -379,13 +468,14 @@ def main() -> None:
         print("\n".join(ptxas_summary(log)))
     k3_lib = _build.load("flash_attention")
     print("flash_attention dynamic shared memory per block: " + ", ".join(
-        f"hd {hd}: {k3_lib.flash_attention_smem_bytes(hd)} B" for hd in (16, 32, 64, 128)))
+        f"hd {hd}: {k3_lib.flash_attention_smem_bytes(hd)} B"
+        for hd in (16, 32, 64, 128, 256)))
 
     # -- 2. kernels against their plain versions --------------------------
     stamp(2)
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {"jacobi_sweep": 0.0, "jacobi_two_step": 0.0, "flash_attention": 0.0,
-            "wkv6": 0.0}
+            "wkv6": 0.0, "rglru": 0.0}
     for shape, (di, dj) in SWEEP_CASES:
         for c in (1 / 6, 0.25):
             f = torch.randn(shape, generator=gen, device=dev)
@@ -444,33 +534,60 @@ def main() -> None:
     k3_bf16 = max(k3_bf16, k3_check("bf16 (1, 2, 128, 32)", flash_attention(
         q, k, v, bq=64, bk=64), mha_ref(q, k, v), K3_BF16_TOL))
 
-    cfg = get_config(QWEN)
+    cfg, gcfg = get_config(QWEN), get_config(GRIFFIN)
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # recurrentgemma-9b's local layers: 16 q / 1 kv head of 256
+    ghq, ghkv, ghd = gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim
 
-    def model_qkv(tq, tk):
-        """(B, T, H, hd) tensors passed as (B, H, T, hd) views, as the model does."""
-        q = torch.randn((1, tq, hq, hd), generator=gen, device=dev).bfloat16().transpose(1, 2)
-        k, v = (torch.randn((1, tk, hkv, hd), generator=gen, device=dev).bfloat16()
+    def model_qkv(tq, tk, heads):
+        """(B, T, H, hd) tensors for ``heads`` = (Hq, Hkv, hd), passed as
+        (B, H, T, hd) views, as the model does."""
+        h, kvh, d = heads
+        q = torch.randn((1, tq, h, d), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        k, v = (torch.randn((1, tk, kvh, d), generator=gen, device=dev).bfloat16()
                 .transpose(1, 2) for _ in range(2))
         return q, k, v
 
-    k3_inputs = {}
+    def k3_model(label, tq, tk, qo, heads, win=0):
+        """K3 against mha_ref on fresh model-shaped bf16 inputs: (the
+        inputs, the error)."""
+        q, k, v = model_qkv(tq, tk, heads)
+        e = k3_check(f"bf16 {label} q {tuple(q.shape)} kv {tuple(k.shape)} "
+                     f"q_offset={qo} window={win}",
+                     flash_attention(q, k, v, q_offset=qo, window=win, bq=tq, bk=tk),
+                     mha_ref(q, k, v, q_offset=qo, window=win), K3_BF16_TOL)
+        return (q, k, v), e
+
+    k3_inputs, k3g_inputs = {}, {}
     for name, tq, tk, qo in K3_SHAPES:
-        q, k, v = model_qkv(tq, tk)
-        k3_inputs[name] = (q, k, v, qo)
+        qkv, e = k3_model(name, tq, tk, qo, (hq, hkv, hd))
+        k3_inputs[name], k3_bf16 = (*qkv, qo), max(k3_bf16, e)
+    for name, tq, tk, qo, win in K3_GRIFFIN_SHAPES:
+        qkv, e = k3_model(f"hd {ghd} {name}", tq, tk, qo, (ghq, ghkv, ghd), win)
+        k3g_inputs[name], k3_bf16 = (*qkv, qo, win), max(k3_bf16, e)
+    # the drains' own prompts: each prefill (with the local layers' window
+    # for recurrentgemma-9b), and the first decode step after it
+    for arch_cfg, heads, win in ((cfg, (hq, hkv, hd), 0),
+                                 (gcfg, (ghq, ghkv, ghd), gcfg.attn_window)):
+        for plen in sorted(len(r.tokens) for r in requests(arch_cfg, Request)):
+            for tq, tk, qo, w in ((plen, plen, 0, win), (1, MAX_SEQ, plen, 0)):
+                _, e = k3_model(f"{arch_cfg.name} drain "
+                                f"{'prefill' if tq > 1 else 'decode'} {plen}",
+                                tq, tk, qo, heads, w)
+                k3_bf16 = max(k3_bf16, e)
+    # a wrapped ring: every slot holds a position, slot p % 2048.  The model's
+    # call (window 0, q_offset pos) against the plain ring mask on the same
+    # bf16 values in f32, rounded once to bf16 as mha_ref's result is
+    for pos in K3_RING_WRAPPED:
+        q, k, v = model_qkv(1, MAX_SEQ, (ghq, ghkv, ghd))
+        want = decode_attention(*(x.transpose(1, 2).float() for x in (q, k, v)),
+                                pos + 1, ring=True)
+        want = want.reshape(1, 1, ghq, ghd).transpose(1, 2).bfloat16()
         k3_bf16 = max(k3_bf16, k3_check(
-            f"bf16 {name} q {tuple(q.shape)} kv {tuple(k.shape)} q_offset={qo}",
-            flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk),
-            mha_ref(q, k, v, q_offset=qo), K3_BF16_TOL))
-    # the drain's own prompts: each prefill, and the first decode step after it
-    for plen in sorted(len(r.tokens) for r in requests(cfg, Request)):
-        for tq, tk, qo in ((plen, plen, 0), (1, MAX_SEQ, plen)):
-            q, k, v = model_qkv(tq, tk)
-            k3_bf16 = max(k3_bf16, k3_check(
-                f"bf16 drain {'prefill' if tq > 1 else 'decode'} {plen} "
-                f"q {tuple(q.shape)} kv {tuple(k.shape)} q_offset={qo}",
-                flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk),
-                mha_ref(q, k, v, q_offset=qo), K3_BF16_TOL))
+            f"bf16 hd {ghd} wrapped ring decode at pos {pos} (window 0, "
+            f"q_offset {pos}) vs decode_attention(ring=True)",
+            flash_attention(q, k, v, q_offset=pos, bq=1, bk=MAX_SEQ), want,
+            K3_BF16_TOL))
     torch.cuda.synchronize()
     if k3_worst > 1.0:
         fail(f"K3 disagrees with mha_ref: an element used {k3_worst:.3f} of its limit")
@@ -535,6 +652,56 @@ def main() -> None:
     if k4_worst > 1.0:
         fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
 
+    print("K5 limit: bit for bit, 0 unequal elements (each step is one rounded "
+          "multiply and one rounded add in both)")
+    k5_unequal = 0
+
+    def k5_check(label, got, want):
+        nonlocal k5_unequal
+        e = max_err(got, want)
+        n = int((got != want).sum())
+        k5_unequal += n
+        errs["rglru"] = max(errs["rglru"], e)
+        print(f"K5 {label}: {n} unequal of {want.numel()}, max_abs_err {e:.3e}, "
+              f"|ref| max {float(want.abs().max()):.4f}")
+
+    for b, t, w, chunk in RGLRU_CASES:
+        a = 0.5 + 0.499 * torch.rand((b, t, w), generator=gen, device=dev)
+        bb = 0.1 * torch.randn((b, t, w), generator=gen, device=dev)
+        k5_check(f"f32 {(b, t, w)} chunk={chunk}", rglru_scan_cuda(a, bb, chunk=chunk),
+                 rglru_scan_ref(a, bb))
+    gw = gcfg.d_model
+    softplus_lam = rglru_model._softplus(torch.log(torch.expm1(-torch.log(
+        torch.linspace(0.9, 0.999, gw, device=dev)) / rglru_model._C)))
+
+    def rglru_model_inputs(t):
+        """recurrentgemma-9b's scan inputs: a = exp(-8 softplus(lam) r) with
+        lam as initialised and r a sigmoid gate; bx = sqrt(1 - a^2) i u."""
+        r, i = (torch.sigmoid(torch.randn((1, t, gw), generator=gen, device=dev))
+                for _ in range(2))
+        log_a = -rglru_model._C * softplus_lam * r
+        a = torch.exp(log_a)
+        bx = torch.sqrt(1 - torch.exp(2 * log_a)) * i * \
+            torch.randn((1, t, gw), generator=gen, device=dev)
+        return a, bx
+
+    k5_inputs = {name: rglru_model_inputs(t) for name, t in K5_SHAPES}
+    zero_h = torch.zeros((1, gw), device=dev)
+    carried_h = rglru_scan_ref(*k5_inputs["prefill_1024"])[:, -1].contiguous()
+    for name, t in K5_SHAPES:
+        h0 = carried_h if t == 1 else zero_h
+        k5_check(f"f32 {name} {(1, t, gw)}" + (" from a prefill's state" if t == 1 else ""),
+                 rglru_scan_cuda(*k5_inputs[name], chunk=t, h0=h0),
+                 rglru_scan_ref(*k5_inputs[name], h0))
+        k5_inputs[name] += (h0,)
+    for plen in sorted(len(r.tokens) for r in requests(gcfg, Request)):
+        a, bx = rglru_model_inputs(plen)
+        k5_check(f"f32 drain prefill {plen}", rglru_scan_cuda(a, bx, chunk=plen, h0=zero_h),
+                 rglru_scan_ref(a, bx, zero_h))
+    torch.cuda.synchronize()
+    if k5_unequal:
+        fail(f"K5 differs from rglru_scan_ref in {k5_unequal} elements")
+
     # -- 3. the Jacobi main path, then jacobi_iterate ----------------------
     stamp(3)
     di, domains, wpd = 10, 4, 2
@@ -580,15 +747,17 @@ def main() -> None:
                  if "rwkv" in cfg.pattern else
                  f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}")
         print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, {heads}, d_ff "
-              f"{cfg.d_ff}, vocab {cfg.vocab_padded()}, {n_params} params in "
-              f"{model.dtype}, built in {time.perf_counter() - t0:.2f} s")
+              f"{cfg.d_ff}, vocab {cfg.vocab_padded()}, {n_params} params counted "
+              f"(ModelConfig.num_params() says {cfg.num_params()}) in {model.dtype}, "
+              f"built in {time.perf_counter() - t0:.2f} s")
         return model, params
 
-    def serve(arch, cfg, kernel_name):
+    def serve(arch, cfg):
         """Build ``arch`` at full width, drain the workload under every
-        policy (checking that each drain launches ``kernel_name`` once per
-        layer per prefill and decode step, and no other kernel) and profile
-        one more drain.  Returns (model, params, metrics)."""
+        policy (checking that each drain launches each kernel of the path
+        once per layer of its kind per prefill and decode step, and no other
+        kernel or plain version) and profile one more drain.  Returns
+        (model, params, metrics)."""
         model, params = build(arch, cfg)
 
         def new_engine(policy):
@@ -598,16 +767,11 @@ def main() -> None:
                 engine.submit(req)
             return engine
 
-        want_n = N_REQUESTS * cfg.num_layers * (1 + MAX_NEW)
-
-        def path_ok(launched):
-            return launched[kernel_name] == want_n and not any(
-                n for name, n in launched.items() if name != kernel_name)
-
+        want = path_launches(cfg, N_REQUESTS)
         prompt_tokens = sum(len(r.tokens) for r in requests(cfg, Request))
         print(f"{arch} serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
               f"{MAX_NEW} new tokens each, {REPLICAS} replicas, max_seq {MAX_SEQ}; "
-              f"want {want_n} launches of {kernel_name} per drain")
+              f"want launches {want} per drain")
         # warm-up (cuBLAS handles, the caching allocator): one short request,
         # so the first policy's times are not the process's first calls
         warm = requests(cfg, Request)[0]
@@ -640,9 +804,9 @@ def main() -> None:
                   f"{m['tokens_per_s']:.2f} tokens/s, prefill "
                   f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
                   f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
-            if not path_ok(launched):
-                fail(f"{arch} {policy}: launches {launched}, want {want_n} of "
-                     f"{kernel_name} and no other kernel or plain call")
+            if not path_ok(launched, want):
+                fail(f"{arch} {policy}: launches {launched}, want {want} and no "
+                     f"other kernel or plain call")
             if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
                     not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values()
                             for t in o):
@@ -667,26 +831,35 @@ def main() -> None:
         busy = busy_ms(spans)
         print(f"profiler: {len(spans)} device records read in "
               f"{time.perf_counter() - t0:.1f} s")
-        if busy <= 0 or not path_ok(prof_launches):
+        if busy <= 0 or not path_ok(prof_launches, want):
             fail(f"{arch} profiled drain: device busy {busy} ms, launches {prof_launches}")
         idle_share = 1 - busy / prof_wall_ms
         print(f"{arch} profiled drain (locality): wall {prof_wall_ms:.4f} ms, device "
               f"busy {busy:.4f} ms, idle share {idle_share:.4f}")
         print("device time by function over the profiled drain:")
         print("\n".join(top_kernels(spans)))
+        in_drain = {}
+        for name in want:
+            times = [(e - st) / 1e3 for fn, st, e in spans if f"{name}_kernel" in fn]
+            in_drain[name] = {"calls": len(times), "total_ms": sum(times) / 1e3,
+                              "mean_us": sum(times) / max(len(times), 1)}
+            print(f"{arch} profiled drain, {name}_kernel: {len(times)} calls, "
+                  f"{sum(times) / 1e3:.3f} ms, {in_drain[name]['mean_us']:.3f} us per call "
+                  f"({sum(times) / 1e3 / busy:.1%} of device busy time)")
         del engine, prof, spans
         result = {p: {k: v for k, v in m.items() if k != "stats"}
                   | {"stats": vars(m["stats"])} for p, m in metrics.items()}
-        result.update(idle_share=idle_share)
+        result.update(idle_share=idle_share, kernels_in_drain=in_drain)
         return model, params, result
 
-    def teacher_forced(arch, cfg, model, params, kernel_name, faults=None):
+    def teacher_forced(arch, cfg, model, params, faults=None):
         """The kernel path against the plain path (``use_kernel=False``) on
         request 0, teacher-forced with the plain path's greedy tokens: the
         prefill's and every decode step's logits must agree within
-        ``LOGITS_ATOL[arch]``.  Each of ``faults`` (name -> a plain WKV
-        version with a planted error) runs the plain path the same way and
-        must differ from it by more than the limit."""
+        ``LOGITS_ATOL[arch]``.  Each of ``faults`` (name -> (module,
+        attribute, a stand-in with a planted error)) runs the plain path the
+        same way with the stand-in in place and must differ from it by more
+        than the limit."""
         req = requests(cfg, Request)[0]
         toks = torch.as_tensor(req.tokens, dtype=torch.int64, device=dev)[None]
         plain_model = build_model(cfg, use_kernel=False)
@@ -707,12 +880,11 @@ def main() -> None:
 
         zero_counts()
         plain_logits, plain_chosen = run(plain_model)
-        if counts()[kernel_name]:
-            fail(f"the plain path launched {kernel_name}")
+        if any(n for name, n in counts().items() if not name.endswith("_plain_calls")):
+            fail(f"the plain path launched a kernel: {counts()}")
         zero_counts()
         kern_logits, kern_chosen = run(model, forced=plain_chosen)
-        if counts()[kernel_name] != cfg.num_layers * (1 + MAX_NEW) or \
-                counts()["wkv6_plain_calls"]:
+        if not path_ok(counts(), path_launches(cfg, 1)):
             fail(f"the teacher-forced kernel path launched {counts()}")
         diff = (kern_logits - plain_logits).abs().amax(dim=-1)
         agree = sum(a == b for a, b in zip(kern_chosen, plain_chosen))
@@ -723,10 +895,13 @@ def main() -> None:
               f"{float(diff.max()):.6f} (prefill {float(diff[0]):.6f}), limit "
               f"{limit}; greedy choices agree {agree}/{MAX_NEW}")
         fault_gaps = {}
-        for name, fn in (faults or {}).items():
-            wkv_ops.wkv6_ref = fn
-            fault_logits, _ = run(plain_model, forced=plain_chosen)
-            wkv_ops.wkv6_ref = counted_ref
+        for name, (module, attr, fn) in (faults or {}).items():
+            sound = getattr(module, attr)
+            setattr(module, attr, fn)
+            try:
+                fault_logits, _ = run(plain_model, forced=plain_chosen)
+            finally:
+                setattr(module, attr, sound)
             fault_gaps[name] = float((fault_logits - plain_logits).abs().max())
             print(f"{arch} planted fault ({name}) vs plain path: max_abs_err "
                   f"{fault_gaps[name]:.6f}, {fault_gaps[name] / limit:.1f}x the limit")
@@ -743,13 +918,13 @@ def main() -> None:
 
     stamp(4)
     serving = {}
-    model, params, serving[QWEN] = serve(QWEN, cfg, "flash_attention")
-    serving[QWEN].update(teacher_forced(QWEN, cfg, model, params, "flash_attention"))
+    model, params, serving[QWEN] = serve(QWEN, cfg)
+    serving[QWEN].update(teacher_forced(QWEN, cfg, model, params))
     del model, params
-    torch.cuda.empty_cache()
+    free_device_memory()
 
     stamp(5)
-    model, params, serving[RWKV] = serve(RWKV, rcfg, "wkv6")
+    model, params, serving[RWKV] = serve(RWKV, rcfg)
     # K4 on a decode step from the state a real prefill left in the cache
     caches = model.init_cache(1, MAX_SEQ)
     toks = torch.as_tensor(requests(rcfg, Request)[0].tokens, device=dev)[None]
@@ -765,17 +940,54 @@ def main() -> None:
     if k4_worst > 1.0:
         fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
     del model, params, caches
-    torch.cuda.empty_cache()
+    free_device_memory()
     # the teacher-forced comparison on an f32 build, with two planted faults
     f32cfg = dataclasses.replace(rcfg, dtype="float32")
     model, params = build(RWKV, f32cfg)
     faults = {
-        "u dropped": lambda r, k, v, w, u, s0=None: wkv6_ref(
-            r, k, v, w, torch.zeros_like(u), s0),
-        "state not carried": lambda r, k, v, w, u, s0=None: wkv6_ref(r, k, v, w, u)}
-    serving[RWKV].update(teacher_forced(RWKV, f32cfg, model, params, "wkv6", faults))
+        "u dropped": (wkv_ops, "wkv6_ref", lambda r, k, v, w, u, s0=None: wkv6_ref(
+            r, k, v, w, torch.zeros_like(u), s0)),
+        "state not carried": (wkv_ops, "wkv6_ref",
+                              lambda r, k, v, w, u, s0=None: wkv6_ref(r, k, v, w, u))}
+    serving[RWKV].update(teacher_forced(RWKV, f32cfg, model, params, faults))
     del model, params
-    torch.cuda.empty_cache()
+    free_device_memory()
+
+    stamp("5b")
+    model, params, serving[GRIFFIN] = serve(GRIFFIN, gcfg)
+    # K5 on a decode step from the state a real prefill left in the cache
+    toks = torch.as_tensor(requests(gcfg, Request)[0].tokens, device=dev)[None]
+    _, caches = model.prefill(params, {"tokens": toks}, model.init_cache(1, MAX_SEQ))
+    kinds = gcfg.layer_kinds()
+    rglru_layers = [i for i, kind in enumerate(kinds) if kind == "rglru"]
+    for layer in (rglru_layers[0], rglru_layers[-1]):
+        h0 = caches[layer]["h"].float()
+        a, bx = rglru_model_inputs(1)
+        k5_check(f"f32 decode from layer {layer}'s prefill state (|h| max "
+                 f"{float(h0.abs().max()):.3f})",
+                 rglru_scan_cuda(a, bx, chunk=1, h0=h0), rglru_scan_ref(a, bx, h0))
+    torch.cuda.synchronize()
+    if k5_unequal:
+        fail(f"K5 differs from rglru_scan_ref in {k5_unequal} elements")
+    del model, params, caches
+    free_device_memory()
+    # the teacher-forced comparison on an f32 build, with two planted faults,
+    # once every earlier model is freed
+    torch.cuda.reset_peak_memory_stats()
+    f32cfg = dataclasses.replace(gcfg, dtype="float32")
+    model, params = build(GRIFFIN, f32cfg)
+    conv = rglru_model._causal_conv
+    faults = {
+        "RG-LRU state not carried": (rglru_ops, "rglru_scan_ref",
+                                     lambda a, b, h0=None: rglru_scan_ref(a, b)),
+        "conv history not carried": (rglru_model, "_causal_conv",
+                                     lambda x, w, b, state=None: conv(x, w, b))}
+    serving[GRIFFIN].update(teacher_forced(GRIFFIN, f32cfg, model, params, faults))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{GRIFFIN} f32 build: peak device memory {peak} B ({peak / 1e9:.2f} GB)")
+    serving[GRIFFIN]["f32_peak_bytes"] = peak
+    del model, params
+    free_device_memory()
 
     # -- 6. timing ---------------------------------------------------------
     stamp(6)
@@ -861,6 +1073,46 @@ def main() -> None:
               f"by {by} ({bnd / m['ms']:.2%} of bound), plain {m['plain_ms']:.4f} ms, "
               f"library: none (no PyTorch call computes the WKV recurrence)")
 
+    # K5 at recurrentgemma-9b's width, from a carried state as the model calls
+    # it (no single PyTorch call computes a linear recurrence: no yardstick).
+    # Bound: a and b read once and h written once, 12 B per element, plus the
+    # state read, over HBM; 2 f32 flops per element
+    k5 = {}
+    for name, t in K5_SHAPES:
+        a, bx, h0 = k5_inputs[name]
+        bnd, by = bound(12 * t * gw + 4 * gw, 2 * t * gw, F32_FLOPS_PER_S)
+        k5[name] = {
+            "ms": device_ms(lambda: rglru_scan_cuda(a, bx, chunk=t, h0=h0)),
+            "plain_ms": device_ms(lambda: rglru_scan_ref(a, bx, h0), 3),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        m = k5[name]
+        print(f"rglru {name} {(1, t, gw)}: {m['ms']:.4f} ms, bound {bnd:.6f} ms by {by} "
+              f"({bnd / m['ms']:.2%} of bound), plain {m['plain_ms']:.4f} ms, "
+              f"library: none (no PyTorch call computes the recurrence)")
+
+    # K3 at recurrentgemma-9b's hd-256 shapes (prefill with window 2048, which
+    # binds nothing at T <= 2048, so SDPA's causal mask is the same function)
+    k3g = {}
+    for name, tq, tk, qo, win in K3_GRIFFIN_SHAPES:
+        q, k, v, _, _ = k3g_inputs[name]
+        visible = min(tk, qo + tq)
+        if tq == 1:
+            lib_call = lambda: sdpa(q, k[:, :, :visible], v[:, :, :visible],  # noqa: E731
+                                    enable_gqa=True)
+        else:
+            lib_call = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        e_lib = max_err(lib_call(), mha_ref(q, k, v, q_offset=qo, window=win))
+        bnd, by = k3_bound(1, ghq, ghkv, tq, tk, ghd, qo)
+        k3g[name] = {
+            "ms": device_ms(lambda: flash_attention(q, k, v, q_offset=qo, window=win,
+                                                    bq=tq, bk=tk)),
+            "plain_ms": device_ms(lambda: mha_ref(q, k, v, q_offset=qo, window=win), 5),
+            "bound_ms": bnd, "bound_by": by, "library_ms": device_ms(lib_call)}
+        r = k3g[name]
+        print(f"flash_attention hd {ghd} {name}: {r['ms']:.4f} ms, bound {bnd:.6f} ms "
+              f"by {by} ({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
+              f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
+
     # -- 7. result lines --------------------------------------------------
     stamp(7)
     kernels = []
@@ -880,7 +1132,10 @@ def main() -> None:
              "src/repro/kernels/flash_attention/kernel.py:26", QWEN, k3_worst, k3,
              K3_HEADLINE),
             ("wkv6", "src/repro_torch/csrc/wkv6.cu",
-             "src/repro/kernels/rwkv6/kernel.py:27", RWKV, k4_worst, k4, K4_HEADLINE)):
+             "src/repro/kernels/rwkv6/kernel.py:27", RWKV, k4_worst, k4, K4_HEADLINE),
+            ("rglru", "src/repro_torch/csrc/rglru.cu",
+             "src/repro/kernels/rglru/kernel.py:23", GRIFFIN, float(k5_unequal), k5,
+             K5_HEADLINE)):
         head = shapes[headline]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -890,6 +1145,10 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shapes": shapes})
+    # K3 also carries recurrentgemma-9b's local layers, at head dim 256
+    kernels[2].update(launches_by_path={
+        arch: serving[arch]["locality"]["launches"]["flash_attention"]
+        for arch in (QWEN, GRIFFIN)}, shapes_hd256=k3g)
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

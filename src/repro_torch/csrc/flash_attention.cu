@@ -42,6 +42,10 @@
 //   * inputs are strided (any b, h, t strides, unit stride along hd), so the
 //     model hands over its (B, T, H, hd) projections and (B, S, KV, hd)
 //     cache as transposed views, with no copy.
+// Head dims 16, 32, 64, 128 and 256 are compiled.  At 256 (gemma3-1b,
+// recurrentgemma-9b) a block holds 24,704 floats of q, K and V tiles,
+// 98,816 B of dynamic shared memory (opted into above 48 KB), and each
+// thread keeps 8 output dims per row and 32 K plus 32 V values in flight.
 // Tensor cores (wgmma), TMA and a pipelined tile ring are later work: this
 // version is right and simple first.
 
@@ -265,6 +269,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, dim3 grid, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, grid, stream);
     case 64: return launch<T, 64>(a, grid, stream);
     case 128: return launch<T, 128>(a, grid, stream);
+    case 256: return launch<T, 256>(a, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -310,6 +315,7 @@ int flash_attention_smem_bytes(int hd) {
     case 32: return smem_floats<32>() * (int)sizeof(float);
     case 64: return smem_floats<64>() * (int)sizeof(float);
     case 128: return smem_floats<128>() * (int)sizeof(float);
+    case 256: return smem_floats<256>() * (int)sizeof(float);
     default: return -1;
   }
 }

@@ -24,7 +24,7 @@ from .. import _build
 from .ref import mha_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)     # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's compiled head widths
 MAX_ROWS = 32                     # (query head, position) rows of one block
 
 

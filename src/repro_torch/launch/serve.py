@@ -3,6 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
         --requests 12 --replicas 3 --policy locality [--device cpu]
 
+``--arch`` takes every architecture the port builds: qwen2-0.5b,
+qwen2-1.5b, gemma3-1b, rwkv6-3b and recurrentgemma-9b.
+
 The port of ``repro.launch.serve``.  Compares router policies on the same
 workload (multi-turn sessions whose follow-ups have cache affinity to the
 replica that served turn one) and prints the locality/steal statistics next

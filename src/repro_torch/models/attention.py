@@ -1,7 +1,8 @@
 """Attention: GQA with optional QKV bias, prefill and decode.
 
-The port of ``repro.models.attention`` for the "full" kind of
-self-attention.  Two execution paths, one semantics:
+The port of ``repro.models.attention`` for the "full" and "local"
+(sliding-window) kinds of self-attention.  Two execution paths, one
+semantics:
 
   * the plain versions, ``direct_attention`` (materialised scores, prefill)
     and ``decode_attention`` (one query against the cache), line for line
@@ -11,13 +12,19 @@ self-attention.  Two execution paths, one semantics:
     (``repro_torch.kernels.flash_attention``), which carries both prefill
     and decode on a CUDA tensor.  For a non-ring cache the reference's
     decode mask ``slot < pos + 1`` is K3's causal mask at
-    ``q_offset = pos``, and the kernel reads only slots 0..pos.
+    ``q_offset = pos``, and the kernel reads only slots 0..pos.  A "local"
+    layer's prefill passes its window to K3.
+
+A "local" layer's cache is a ring of ``min(attn_window, max_seq)`` slots:
+position p lives in slot ``p % S``.  Decode writes its slot in place;
+prefill keeps the prompt's last ``min(T, S)`` positions at their slots and
+zeroes the rest, as the reference's rolled write leaves them.
 
 The reference switches prefill longer than 2048 tokens to
 ``chunked_attention``, ``banded_attention`` or ``seq_parallel_attention``;
 the port has no plain version of those yet (ROADMAP B8, E3), so a longer
-prefill needs the kernel path.  Sliding-window ("local") layers with their
-ring-buffer cache and cross-attention are not ported yet (ROADMAP B8).
+prefill needs the kernel path.  Cross-attention is not ported yet (ROADMAP
+B8).
 The reference's ``shard`` constraints are no-ops without mesh rules and
 are dropped.
 """
@@ -129,14 +136,29 @@ def decode_attention(q, k_cache, v_cache, cache_len, ring: bool = False,
     return o.reshape(b, 1, h * hd)
 
 
-def _kernel_attention(q, k, v, *, causal: bool, q_offset: int) -> torch.Tensor:
+def _kernel_attention(q, k, v, *, causal: bool, q_offset: int,
+                      window: int = 0) -> torch.Tensor:
     """K3 on (B, T, H, hd) tensors: the kernel takes their transposed views
     as they lie, and its (B, Hq, Tq, hd) result lies in (B, Tq, Hq, hd)
     memory, so neither side copies.  The block sizes only have to divide."""
     b, tq, h, hd = q.shape
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=causal, q_offset=q_offset, bq=tq, bk=k.shape[1])
+                          causal=causal, window=window, q_offset=q_offset,
+                          bq=tq, bk=k.shape[1])
     return out.transpose(1, 2).reshape(b, tq, h * hd)
+
+
+def _ring_write(buf: torch.Tensor, x: torch.Tensor, pos_offset: int) -> None:
+    """Prefill into a ring cache, in place: the last ``min(T, S)`` of
+    ``x``'s positions (``pos_offset``..) at slot ``p % S``, every other
+    slot zero (what the reference's ``zeros_like(...).at[:take].set``
+    then ``roll`` returns)."""
+    tq, s = x.shape[1], buf.shape[1]
+    take = min(tq, s)
+    p0 = pos_offset + tq - take
+    slots = torch.arange(p0, p0 + take, device=buf.device) % s
+    buf.zero_()
+    buf[:, slots] = x[:, tq - take:].to(buf.dtype)
 
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -152,16 +174,16 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, new_cache).  ``cache=None`` means train/prefill without
     cache retention; a dict cache triggers the decode path when Tq == 1.
     On a CUDA tensor, with ``use_kernel`` (the default), attention runs in
-    K3; otherwise in the plain versions.
+    K3; otherwise in the plain versions.  kind: "full" | "local".
     """
-    if kind != "full":
+    if kind not in ("full", "local"):
         raise NotImplementedError(
-            f"attention kind {kind!r} (sliding window, ring-buffer cache) is "
-            "not ported yet: ROADMAP B8")
+            f"attention kind {kind!r} is not ported yet: ROADMAP B8")
     if cross_x is not None or (cache is not None and "xk" in cache):
         raise NotImplementedError("cross-attention is not ported yet: ROADMAP B8")
     h = num_heads or cfg.num_heads
     kv = num_kv or cfg.num_kv_heads
+    window = cfg.attn_window if kind == "local" else 0
     theta = cfg.rope_theta if theta is None else theta
     kernel = use_kernel and x.device.type == "cuda"
 
@@ -172,26 +194,41 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q = apply_rope(q, positions.expand(b, tq), theta)
         k = apply_rope(k, positions.expand(b, tq), theta)
 
+    ring = False
+    if cache is not None:
+        s_cache = cache["k"].shape[1]
+        ring = window > 0 and s_cache <= window
+
     if cache is not None and tq == 1:
-        # decode: write this step's k/v into the cache in place (the
-        # reference's dynamic_update_slice returns a new array; the caller
-        # owns the cache either way), then attend against slots 0..pos
+        # decode: write this step's k/v into the cache (slot pos, or pos % S
+        # in a ring) in place (the reference's dynamic_update_slice returns
+        # a new array; the caller owns the cache either way), then attend
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, pos_offset] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, pos_offset] = v[:, 0].to(v_cache.dtype)
+        slot = pos_offset % s_cache if ring else pos_offset
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
         if kernel:
+            # K3 over the whole cache with the causal mask at q_offset = pos
+            # and NO window: it sees slots <= pos, which is every slot once
+            # a ring is full, and exactly the reference's mask
+            # slot < min(pos + 1, S).  Ring slots are not in position order
+            # (slot s holds position p with p % S = s), so K3's window, which
+            # compares slot indices with positions, would drop valid slots;
+            # softmax does not care about the order of the keys it sums
             out = _kernel_attention(q, k_cache, v_cache, causal=True,
                                     q_offset=pos_offset)
         else:
-            out = decode_attention(q, k_cache, v_cache, pos_offset + 1)
+            out = decode_attention(q, k_cache, v_cache, pos_offset + 1,
+                                   ring=ring, window=window)
         return out @ p["wo"], {"k": k_cache, "v": v_cache}
 
     # train / prefill
     if kernel:
-        out = _kernel_attention(q, k, v, causal=causal, q_offset=pos_offset)
+        out = _kernel_attention(q, k, v, causal=causal, q_offset=pos_offset,
+                                window=window)
     elif tq <= DIRECT_MAX_T:
-        mask = _causal_mask(tq, tq, pos_offset, device=x.device) if causal else \
-            torch.zeros((tq, tq), dtype=torch.float32, device=x.device)
+        mask = _causal_mask(tq, tq, pos_offset, window, device=x.device) if causal \
+            else torch.zeros((tq, tq), dtype=torch.float32, device=x.device)
         out = direct_attention(q, k, v, mask)
     else:
         raise NotImplementedError(
@@ -201,8 +238,12 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     new_cache = None
     if cache is not None:
-        # prefill: the prompt's k/v go into slots pos_offset.. in place
-        cache["k"][:, pos_offset:pos_offset + tq] = k.to(cache["k"].dtype)
-        cache["v"][:, pos_offset:pos_offset + tq] = v.to(cache["v"].dtype)
+        # prefill, in place: a ring keeps the last S positions at their
+        # slots; otherwise the prompt's k/v go into slots pos_offset..
+        for name, val in (("k", k), ("v", v)):
+            if ring:
+                _ring_write(cache[name], val, pos_offset)
+            else:
+                cache[name][:, pos_offset:pos_offset + tq] = val.to(cache[name].dtype)
         new_cache = {"k": cache["k"], "v": cache["v"]}
     return matmul_lowp(out, p["wo"]), new_cache

@@ -26,10 +26,11 @@ Params = dict[str, Any]
 def _trunc_normal(gen: torch.Generator, shape: tuple[int, ...],
                   std: float, dtype: torch.dtype) -> torch.Tensor:
     """Standard normal truncated to [-3, 3], times ``std``, drawn in f32 on
-    the generator's device and then cast (as the reference does)."""
+    the generator's device and then cast (as the reference does).  Scaled
+    in place: a full-width embedding is gigabytes in f32."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,

@@ -22,10 +22,12 @@ from .common import Params
 from .transformer import check_ported
 
 # leaf names of the reference's _LEAF_AXES (models/model.py) that the
-# ported layers use (attention and dense MLP, RWKV), plus the norms' own
-# leaves
+# ported layers use (attention and dense MLP, RG-LRU, RWKV), plus the
+# norms' own leaves
 LEAVES = frozenset({"tok", "head", "scale", "bias", "wq", "wk", "wv", "wo",
                     "bq", "bk", "bv", "w_up", "w_gate", "w_down",
+                    "w_gate_branch", "w_x_branch", "conv_w", "conv_b", "w_a",
+                    "b_a", "w_i", "b_i", "lam", "w_out",
                     "w_r", "w_k", "w_v", "w_g", "w_o", "decay_lora_a",
                     "decay_lora_b", "mix_lora_a", "mix_lora_b", "mix_base",
                     "decay_base", "u", "gn_scale", "gn_bias", "w_ck", "w_cv",

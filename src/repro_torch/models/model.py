@@ -12,8 +12,8 @@ interface, so the serving engine ports line for line:
 ``params`` is a dict of tensors (the stack a list of per-layer dicts, see
 ``transformer``).  The model runs eagerly on its device: ``cuda`` unless
 the caller passes ``device="cpu"``, and it raises without a card.  On the
-card attention runs in K3 and the RWKV recurrence in K4 unless
-``use_kernel=False`` asks for the plain versions.  Whisper's encoder and the VLM's vision tokens are not ported
+card attention runs in K3, the RWKV recurrence in K4 and the RG-LRU scan
+in K5 unless ``use_kernel=False`` asks for the plain versions.  Whisper's encoder and the VLM's vision tokens are not ported
 yet (ROADMAP D).
 """
 from __future__ import annotations
@@ -46,6 +46,14 @@ class Model:
         self.dtype = _DTYPES[cfg.dtype]
         self.device = resolve_device(device)
         self.use_kernel = use_kernel
+        # gemma's and the hybrid family's embedding scale, sqrt(d_model)
+        # rounded to the model's dtype first, as the reference rounds it
+        # (64.0 at d 4096; 33.94 at gemma3-1b's 1152 is no bf16 number)
+        self._embed_scale = None
+        if (cfg.family == "dense" and cfg.name.startswith("gemma")) or \
+                cfg.family == "hybrid":
+            self._embed_scale = torch.tensor(cfg.d_model ** 0.5,
+                                             dtype=self.dtype).item()
 
     # -- parameters ---------------------------------------------------------
     def init_params(self, generator: torch.Generator) -> Params:
@@ -75,7 +83,9 @@ class Model:
                 last_only: bool = False):
         """Returns (logits, new_caches, aux)."""
         cfg = self.cfg
-        x = params["tok"][tokens]   # gemma's embedding scale waits for its kinds
+        x = params["tok"][tokens]
+        if self._embed_scale is not None:
+            x = x * self._embed_scale
 
         x, new_caches, aux = apply_stack(
             params["stack"], x, cfg, pos_offset=pos_offset, caches=caches,

@@ -8,9 +8,10 @@ layer order (``cfg.layer_kinds()``), and caches are a list of per-layer
 dicts beside it.  ``repro_torch.models.convert`` unstacks the reference's
 ``{"groups", "remainder"}`` tree into that list.
 
-The "full" kind with a dense MLP and the "rwkv" kind are ported so far;
-the other kinds, MLA and MoE raise ``NotImplementedError`` naming their
-ROADMAP item.
+The "full" and "local" (sliding-window) attention kinds with a dense MLP,
+the "rglru" kind (Griffin's recurrent block and its gated MLP) and the
+"rwkv" kind are ported; the "cross" kind, MLA and MoE raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,12 +23,11 @@ from ..configs.base import ModelConfig
 from .attention import attention_block, attn_init
 from .common import Params, layer_norm, layer_norm_init, rms_norm, rms_norm_init
 from .mlp import mlp, mlp_init
+from .rglru import rglru_block, rglru_init
 from .rwkv import rwkv_channel_mix, rwkv_init, rwkv_time_mix
 
 _NOT_PORTED = {
-    "local": "ROADMAP B8 (sliding-window layers and their ring-buffer cache)",
     "cross": "ROADMAP B8 (cross-attention layers)",
-    "rglru": "ROADMAP C2 (RG-LRU blocks)",
 }
 
 
@@ -36,9 +36,9 @@ def check_ported(cfg: ModelConfig, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind == "rwkv":
+    if kind in ("rwkv", "rglru"):
         return
-    if kind != "full":
+    if kind not in ("full", "local"):
         raise ValueError(f"unknown layer kind {kind!r}")
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP D")
@@ -68,6 +68,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         return {"ln1": _norm_init(cfg, d, dtype, gen.device),
                 "tmix": rwkv_init(gen, cfg, dtype),
                 "ln2": _norm_init(cfg, d, dtype, gen.device)}
+    if kind == "rglru":
+        return {"ln1": _norm_init(cfg, d, dtype, gen.device),
+                "rec": rglru_init(gen, cfg, dtype),
+                "ln2": _norm_init(cfg, d, dtype, gen.device),
+                "mlp": mlp_init(gen, d, cfg.d_ff, gated=True, dtype=dtype)}
     gated = cfg.act in ("silu", "gelu")
     return {"ln1": _norm_init(cfg, d, dtype, gen.device),
             "attn": attn_init(gen, cfg, dtype=dtype),
@@ -84,7 +89,13 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
         return {"s": ((batch, d // hd, hd, hd), torch.float32),
                 "x_tm": ((batch, d), dtype),
                 "x_cm": ((batch, d), dtype)}
-    kvd = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    if kind == "rglru":
+        return {"h": ((batch, cfg.d_model), dtype),
+                "conv": ((batch, 3, cfg.d_model), dtype)}
+    # a "local" layer's cache is a ring of at most attn_window slots
+    s = min(cfg.attn_window, max_seq) if (kind == "local" and cfg.attn_window) \
+        else max_seq
+    kvd = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return {"k": (kvd, dtype), "v": (kvd, dtype)}
 
 
@@ -94,8 +105,8 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 use_kernel: bool = True):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
 
-    ``aux_loss`` is the MoE router's loss in the reference; the ported dense
-    and RWKV blocks have none and return 0.0."""
+    ``aux_loss`` is the MoE router's loss in the reference; the ported dense,
+    RG-LRU and RWKV blocks have none and return 0.0."""
     check_ported(cfg, kind)
     if kind == "rwkv":
         h, c1 = rwkv_time_mix(p["tmix"], _norm(cfg, p["ln1"], x), cfg,
@@ -108,6 +119,14 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                                  {"x_cm": cache["x_cm"]})
         x = x + h
         return x, None if cache is None else {**c1, **c2}, 0.0
+    if kind == "rglru":
+        h, c1 = rglru_block(p["rec"], _norm(cfg, p["ln1"], x), cfg,
+                            cache=None if cache is None else
+                            {"h": cache["h"], "conv": cache["conv"]},
+                            use_kernel=use_kernel)
+        x = x + h
+        x = x + mlp(p["mlp"], _norm(cfg, p["ln2"], x), cfg.act)
+        return x, c1, 0.0
     attn_cache = None
     if cache is not None:
         attn_cache = {k: v for k, v in cache.items() if k in ("k", "v")}

@@ -26,7 +26,8 @@ Routing policies:
 The engine runs the real model (one prefill and ``max_new`` decode steps
 per request) on its device, ``cuda`` unless the caller passes
 ``device="cpu"``; on the card every attention call of every layer goes
-through K3 and every WKV recurrence of an RWKV layer through K4.  Outputs are identical under every routing policy while the
+through K3, every WKV recurrence of an RWKV layer through K4 and every
+RG-LRU scan of a recurrent layer through K5.  Outputs are identical under every routing policy while the
 steal/local statistics differ as the paper predicts.
 
 ``trace=`` takes any recorder with ``.attach(executor)`` (such as

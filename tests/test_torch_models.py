@@ -2,9 +2,11 @@
 package on the CPU.
 
 Inputs come from a numpy seed and go to both sides.  The model tests use
-the reduced qwen2-0.5b (``reduce_config``, f32) with the reference's own
-initialised parameters carried across by ``params_from_jax``, since torch
-cannot reproduce ``jax.random`` draws.  Tolerances: 1e-6 for the
+the reduced qwen2-0.5b and gemma3-1b (``reduce_config``, f32; gemma3-1b
+has five "local" layers with a 16-slot ring, a "full" one and a local
+remainder, head dim 16, and gemma's embedding scale) with the reference's
+own initialised parameters carried across by ``params_from_jax``, since
+torch cannot reproduce ``jax.random`` draws.  Tolerances: 1e-6 for the
 elementwise building blocks (the same f32 ops in the same order); 1e-5 for
 one attention block or MLP (f32 matmul sums in another order); 1e-4 for
 logits after the whole stack (the same, over every layer).
@@ -209,7 +211,7 @@ class TestBlocks:
             got = attention.decode_attention(_t(q), _t(k), _t(v), length, ring=ring)
             np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-6)
 
-    @pytest.mark.parametrize("kind", ["local", "cross"])
+    @pytest.mark.parametrize("kind", ["cross"])
     def test_unported_kinds_raise(self, pair, kind):
         cfg, _, _, _, pp = pair
         with pytest.raises(NotImplementedError, match="ROADMAP B8"):
@@ -286,11 +288,100 @@ class TestModel:
             build_model(pair[0])
 
 
-# every registered architecture but the dense full-attention ones and
-# rwkv6-3b (tests/test_torch_rwkv.py)
-UNPORTED = ["gemma3-1b", "llama-3.2-vision-90b", "minicpm3-4b",
-            "phi3.5-moe-42b-a6.6b", "qwen3-moe-30b-a3b", "recurrentgemma-9b",
-            "whisper-base"]
+# every registered architecture but the dense ones (qwen2, gemma3-1b),
+# rwkv6-3b (tests/test_torch_rwkv.py) and recurrentgemma-9b
+# (tests/test_torch_rglru.py)
+UNPORTED = ["llama-3.2-vision-90b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+            "qwen3-moe-30b-a3b", "whisper-base"]
+GEMMA = "gemma3-1b"
+
+
+@pytest.fixture(scope="module")
+def gemma():
+    """(cfg, JAX model, JAX params, port model, port params): the reduced
+    gemma3-1b."""
+    cfg = configs.reduce_config(configs.get_config(GEMMA))
+    jm = jax_build_model(jax_reduce_config(jax_get_config(GEMMA)), max_pos=96)
+    jp = jm.init_params(jax.random.key(0))
+    pm = build_model(cfg, max_pos=96, device="cpu")
+    pp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return cfg, jm, jp, pm, pp
+
+
+class TestGemma3:
+    """The reduced gemma3-1b, built from the "local" kind, its ring cache
+    and the embedding scale, against the reference (logits atol 1e-4)."""
+
+    def test_forward(self, gemma):
+        cfg, jm, jp, pm, pp = gemma
+        assert cfg.layer_kinds() == ["local"] * 5 + ["full", "local"]
+        toks = _tokens(cfg, (2, 29))
+        want, _, _ = jm.forward(jp, jnp.asarray(toks))
+        got, _, _ = pm.forward(pp, torch.from_numpy(toks))
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-4)
+
+    # prompts shorter and longer than the 16-slot ring, decoded until it wraps
+    @pytest.mark.parametrize("t,end", [(9, 19), (21, 25)])
+    def test_prefill_and_decode_steps(self, gemma, t, end):
+        cfg, jm, jp, pm, pp = gemma
+        toks = _tokens(cfg, (1, end), seed=t)
+        jc, pc = jm.init_cache(1, 48), pm.init_cache(1, 48)
+        assert [tuple(c["k"].shape)[1] for c in pc] == [16] * 5 + [48, 16]
+        want, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :t])}, jc)
+        got, pc = pm.prefill(pp, {"tokens": torch.from_numpy(toks[:, :t])}, pc)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-4)
+        for pos in range(t, end):
+            step = toks[:, pos:pos + 1]
+            want, jc = jm.decode_step(jp, jnp.asarray(step), pos, jc)
+            got, pc = pm.decode_step(pp, torch.from_numpy(step), pos, pc)
+            np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-4)
+
+    def test_prefill_then_decode_equals_forward(self, gemma):
+        cfg, _, _, pm, pp = gemma
+        toks = torch.from_numpy(_tokens(cfg, (1, 40), seed=2))
+        full, _, _ = pm.forward(pp, toks)
+        caches = pm.init_cache(1, 48)
+        logits, caches = pm.prefill(pp, {"tokens": toks[:, :20]}, caches)
+        torch.testing.assert_close(logits[:, 0], full[:, 19], rtol=0, atol=1e-5)
+        for pos in range(20, 40):
+            logits, caches = pm.decode_step(pp, toks[:, pos:pos + 1], pos, caches)
+            torch.testing.assert_close(logits[:, 0], full[:, pos], rtol=0, atol=1e-5)
+
+    # f32 at the reduced width (8.0), and bf16 at gemma3-1b's own 1152,
+    # whose sqrt (33.94) rounds to 34.0 before it multiplies, as in the
+    # reference; qwen2 has no scale
+    @pytest.mark.parametrize("arch,d,dtype", [
+        (GEMMA, 64, "float32"), (GEMMA, 1152, "bfloat16"),
+        ("recurrentgemma-9b", 4096, "bfloat16"), (ARCH, 64, "float32")])
+    def test_embedding_scale(self, monkeypatch, arch, d, dtype):
+        from repro.models import model as jax_model_mod
+        from repro_torch.models import model as model_mod
+        base = configs.get_config(arch)      # one repeat of the pattern
+        jcfg = dataclasses.replace(jax_reduce_config(jax_get_config(arch)), d_model=d,
+                                   dtype=dtype, num_layers=len(base.pattern))
+        cfg = dataclasses.replace(configs.reduce_config(base), d_model=d,
+                                  dtype=dtype, num_layers=len(base.pattern))
+        jm = jax_build_model(jcfg)
+        jp = jm.init_params(jax.random.key(2))
+        pp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        seen = {}
+
+        def spy(name):
+            def stack(params, x, cfg, **kw):
+                seen[name] = np.asarray(x.float() if name == "port" else
+                                        x.astype(jnp.float32))
+                return x, None, 0.0
+            return stack
+
+        monkeypatch.setattr(jax_model_mod, "apply_stack", spy("jax"))
+        monkeypatch.setattr(model_mod, "apply_stack", spy("port"))
+        toks = _tokens(cfg, (1, 7))
+        jm.forward(jp, jnp.asarray(toks))
+        build_model(cfg, device="cpu").forward(pp, torch.from_numpy(toks))
+        np.testing.assert_array_equal(seen["port"], seen["jax"])
+        scaled = arch != ARCH
+        raw = pp["tok"][torch.from_numpy(toks)].float().numpy()
+        assert scaled == bool(np.any(seen["port"] != raw))
 
 
 class TestConverter:

@@ -1,8 +1,10 @@
 """The port's serving engine (``repro_torch.serving.engine``) and its driver
 (``repro_torch.launch.serve``) held against the JAX package on the CPU.
 
-Both engines serve the same reduced model, qwen2-0.5b or rwkv6-3b (the
-tests against the reference take the architecture as a parameter), with
+Both engines serve the same reduced model, qwen2-0.5b, rwkv6-3b or
+recurrentgemma-9b (the tests against the reference take the architecture
+as a parameter; recurrentgemma-9b's 16-slot ring wraps in the longer
+requests), with
 the same parameters (the reference's, carried across by
 ``params_from_jax``) and the same requests (numpy draws).  The scheduler is the same code in both packages, so
 ``ServeStats`` and recorded traces must be equal, and greedy decoding of
@@ -33,7 +35,7 @@ from repro_torch.models.model import build_model
 from repro_torch.serving.engine import POLICIES, Request, ServingEngine
 
 
-ARCHS = ["qwen2-0.5b", "rwkv6-3b"]
+ARCHS = ["qwen2-0.5b", "rwkv6-3b", "recurrentgemma-9b"]
 
 
 @functools.lru_cache(maxsize=None)
