@@ -18,7 +18,7 @@ failure:
    Tk > Tq offset) in f32 and its bf16 case, and at qwen2-0.5b's shapes in
    bf16, as the strided views the model passes: prefill 14 over 2 heads
    at T = 128 and 1024 and at each of the serving drain's 12 prompt
-   lengths (ragged in the 32-key tile and the 4-position query block), and
+   lengths (ragged in the 64-key tile and the 9-position query block), and
    decode of one query against a 2048-slot cache at q_offset 0, 517, 2047
    and each prompt length.  Limits, per element against ``mha_ref``'s
    value ``r``: 3e-5 in f32, 3e-5 + 2^-7 |r| in bf16.  K4 (the WKV6
@@ -38,7 +38,12 @@ failure:
    2048 at 128, 1024 and the drain's lengths, decode over a 2048-slot ring
    at positions 0, 517 and 2047, and over a wrapped ring at 2100 and 4095
    (``window=0``, ``q_offset=pos``) against ``decode_attention(ring=True)``
-   on the same values in f32, rounded once to bf16; the bf16 limit above;
+   on the same values in f32, rounded once to bf16; K3's bf16 design at
+   both head shapes: decode on either side of a split boundary and with a
+   window, prefill one past the row and key tiles, a split prefill in
+   which some rows see none of a chunk's keys; the bf16 limit above.  Then
+   the same K3 call, repeated, must give the same bits (decode 2047 and
+   prefill 1024, both split);
 3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
    (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
    sweep, with the launch counts zeroed before and read after; then
@@ -170,6 +175,17 @@ K3_GRIFFIN_SHAPES = [("prefill_128", 128, 128, 0, 2048),
                      ("decode_0", 1, 2048, 0, 0), ("decode_517", 1, 2048, 517, 0),
                      ("decode_2047", 1, 2048, 2047, 0)]
 K3_RING_WRAPPED = (2100, 4095)
+# K3's bf16 design: decode (q_offset, window) on either side of a split
+# boundary (64-key tiles: 63 fills one tile, 64 starts the second) and a
+# windowed decode whose range starts mid-tile; prefill one past the row tile
+# and the key tile (577 = 9 * 64 + 1 at qwen2's 9 positions per block, 129 =
+# 4 * 32 + 1 at hd 256); a split prefill in which some rows see none of a
+# chunk's keys (qwen2 T 513: two chunks, the second from key 320; the row
+# tile of positions 315-323 sees keys 320-323 only from it)
+K3_SPLIT_DECODE = [(63, 0), (64, 0), (127, 0), (128, 0), (1023, 0), (1024, 0),
+                   (2047, 100)]
+K3_ONE_PAST = {QWEN: (577, 0), GRIFFIN: (129, 2048)}
+K3_MISSED_CHUNK = 513
 # kernel path vs plain path, teacher-forced.  qwen2-0.5b, bf16 logits: logits
 # of magnitude ~3 have an ulp of 2^-6; attention rounded at other points
 # (f32 softmax in K3, bf16 scores and weights in the plain path) moves them
@@ -381,7 +397,8 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as k3_kernel
+    from repro_torch.kernels.flash_attention.kernel import flash_attention, split_plan
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.kernels.jacobi import ops, ref
     from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
@@ -466,10 +483,19 @@ def main() -> None:
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu: registers, shared memory, spills ---")
         print("\n".join(ptxas_summary(log)))
-    k3_lib = _build.load("flash_attention")
-    print("flash_attention dynamic shared memory per block: " + ", ".join(
-        f"hd {hd}: {k3_lib.flash_attention_smem_bytes(hd)} B"
-        for hd in (16, 32, 64, 128, 256)))
+    k3_lib = k3_kernel._lib()
+    for label, dtype, rows in (("f32", 0, 0), ("bf16 decode, 16 rows", 1, 16),
+                               ("bf16 prefill, 64 rows", 1, 64)):
+        print(f"flash_attention {label}: dynamic shared memory per block: " + ", ".join(
+            f"hd {hd}: {k3_lib.flash_attention_smem_bytes(dtype, rows, hd)} B"
+            + (f" ({k3_lib.flash_attention_blocks_per_sm(rows, hd)} blocks per SM)"
+               if dtype else "") for hd in k3_kernel.HEAD_DIMS))
+
+    def k3_plan(heads, tq, tk, qo=0, win=0):
+        """K3's split plan on this card for (Hq, Hkv, hd) ``heads``."""
+        h, kvh, d = heads
+        slots = k3_kernel._slots(0, k3_kernel.variant(h, kvh, tq, d)[0], d)
+        return split_plan(1, h, kvh, tq, tk, d, q_offset=qo, window=win, slots=slots)
 
     # -- 2. kernels against their plain versions --------------------------
     stamp(2)
@@ -588,9 +614,37 @@ def main() -> None:
             f"q_offset {pos}) vs decode_attention(ring=True)",
             flash_attention(q, k, v, q_offset=pos, bq=1, bk=MAX_SEQ), want,
             K3_BF16_TOL))
+    for heads in ((hq, hkv, hd), (ghq, ghkv, ghd)):
+        for qo, win in K3_SPLIT_DECODE:
+            plan = k3_plan(heads, 1, MAX_SEQ, qo, win)
+            _, e = k3_model(f"hd {heads[2]} split decode ({plan.splits} chunks of "
+                            f"{plan.tiles_per_chunk} x {plan.bk} keys)", 1, MAX_SEQ, qo,
+                            heads, win)
+            k3_bf16 = max(k3_bf16, e)
+    for arch_cfg, heads in ((cfg, (hq, hkv, hd)), (gcfg, (ghq, ghkv, ghd))):
+        t, win = K3_ONE_PAST[arch_cfg.name]
+        _, e = k3_model(f"hd {heads[2]} prefill one past the row and key tiles", t, t, 0,
+                        heads, win)
+        k3_bf16 = max(k3_bf16, e)
+    t = K3_MISSED_CHUNK
+    plan = k3_plan((hq, hkv, hd), t, t)
+    _, e = k3_model(f"hd {hd} split prefill, rows that miss a chunk ({plan.splits} "
+                    f"chunks of {plan.tiles_per_chunk} x {plan.bk} keys)", t, t, 0,
+                    (hq, hkv, hd))
+    k3_bf16 = max(k3_bf16, e)
     torch.cuda.synchronize()
     if k3_worst > 1.0:
         fail(f"K3 disagrees with mha_ref: an element used {k3_worst:.3f} of its limit")
+    # the same call gives the same bits (the split's merge order is fixed)
+    for label, (q, k, v, qo, *win) in (("qwen2 decode_2047", k3_inputs["decode_2047"]),
+                                       ("qwen2 prefill_1024", k3_inputs["prefill_1024"]),
+                                       ("hd 256 decode_2047", k3g_inputs["decode_2047"]),
+                                       ("hd 256 prefill_1024", k3g_inputs["prefill_1024"])):
+        kw = dict(q_offset=qo, window=win[0] if win else 0, bq=q.shape[2], bk=k.shape[2])
+        first = flash_attention(q, k, v, **kw)
+        if not all(torch.equal(flash_attention(q, k, v, **kw), first) for _ in range(3)):
+            fail(f"K3 {label}: repeated calls differ")
+    print("K3 repeat calls bit-identical at qwen2 and hd 256 decode_2047 and prefill_1024")
     errs["flash_attention"] = max(k3_f32, k3_bf16)
 
     print(f"K4 limit, per element of o and of the final state: |err| <= {K4_REL} "
@@ -1053,7 +1107,9 @@ def main() -> None:
             "bound_ms": bnd, "bound_by": by,
             "library_ms": device_ms(lib_call)}
         r = k3[name]
-        print(f"flash_attention {name}: {r['ms']:.4f} ms, bound {bnd:.6f} ms by {by} "
+        plan = dataclasses.asdict(k3_plan((hq, hkv, hd), tq, tk, qo))
+        print(f"flash_attention {name} (plan {plan}): {r['ms']:.4f} ms, bound "
+              f"{bnd:.6f} ms by {by} "
               f"({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
               f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
 
@@ -1109,7 +1165,9 @@ def main() -> None:
             "plain_ms": device_ms(lambda: mha_ref(q, k, v, q_offset=qo, window=win), 5),
             "bound_ms": bnd, "bound_by": by, "library_ms": device_ms(lib_call)}
         r = k3g[name]
-        print(f"flash_attention hd {ghd} {name}: {r['ms']:.4f} ms, bound {bnd:.6f} ms "
+        plan = dataclasses.asdict(k3_plan((ghq, ghkv, ghd), tq, tk, qo, win))
+        print(f"flash_attention hd {ghd} {name} (plan {plan}): {r['ms']:.4f} ms, "
+              f"bound {bnd:.6f} ms "
               f"by {by} ({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
               f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
 

@@ -3,40 +3,151 @@ kernel for Hopper.
 
 Replaces the Pallas kernel ``_flash_kernel`` of
 ``repro/kernels/flash_attention/kernel.py`` (reached through
-``flash_attention``).  The kernel is ``flash_attention_kernel`` in
+``flash_attention``).  The kernels are in
 ``repro_torch/csrc/flash_attention.cu``; its note gives the bounds (prefill
 by operations, decode by the K/V bytes up to the query's position) and the
-design: group-major blocks that read each K/V tile once per kv head, and a
-key range computed per block, so decode reads only the cache's filled part.
+design.  In bf16 (the model's path): group-major rows on tensor-core tiles,
+K/V tiles by 16-byte ``cp.async``, P kept at f32 precision through P.V as a
+hi/lo pair of bf16, and a key range split over blocks when the grid is too
+small to fill the card (:func:`split_plan`).  In f32: exact f32 products on
+the SIMT cores, no split.
 
 ``bq``/``bk`` keep the reference's contract — sequence lengths they do not
 divide raise ``ValueError`` — but do not set the CUDA tiling, which is
-fixed by the kernel (32-key tiles; up to 32 query rows per block).
+fixed by the kernel and :func:`split_plan`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
 from .. import _build
 from .ref import mha_ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's compiled head widths
-MAX_ROWS = 32                     # (query head, position) rows of one block
+MAX_ROWS = 32                     # (query head, position) rows of an f32 block
+DECODE_ROWS, PREFILL_ROWS = 16, 64     # rows of a bf16 block, by variant
+MAX_SPLITS = 64                   # key-range chunks per row tile
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one bf16 call is cut: ``rows`` (query head, position) rows per
+    block, ``qt`` query positions per block (``rows // G`` at most), ``bk``
+    keys per tile, ``row_tiles`` blocks along the queries, and each row
+    tile's visible key range cut into ``splits`` chunks of
+    ``tiles_per_chunk`` tiles (one block each)."""
+    rows: int
+    qt: int
+    bk: int
+    row_tiles: int
+    splits: int
+    tiles_per_chunk: int
+
+
+def key_range(t0: int, t1: int, tk: int, *, causal: bool, window: int,
+              q_offset: int) -> tuple[int, int]:
+    """[k_begin, k_end): the keys any query position in [t0, t1) can see,
+    as the kernel computes them (may be empty)."""
+    if not causal:
+        return 0, tk
+    k_begin = max(0, q_offset + t0 - window + 1) if window > 0 else 0
+    return k_begin, min(tk, q_offset + t1)
+
+
+def _tiles(k_begin: int, k_end: int, bk: int) -> int:
+    return -(-(k_end - k_begin) // bk) if k_end > k_begin else 0
+
+
+def variant(hq: int, hkv: int, tq: int, hd: int) -> tuple[int, int, int]:
+    """(rows, qt, bk) of the bf16 kernel's variant for these shapes:
+    decode-sized calls (G * Tq <= 16 rows) take 16 rows, 4 warps sharing
+    each 64-key tile; the rest 64 rows (qt = 64 // G positions), 64-key
+    tiles (32 at hd 256)."""
+    group = hq // hkv
+    if group * tq <= DECODE_ROWS:
+        return DECODE_ROWS, tq, 64
+    return PREFILL_ROWS, PREFILL_ROWS // group, 32 if hd > 128 else 64
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(batch: int, hq: int, hkv: int, tq: int, tk: int, hd: int, *,
+               slots: int, causal: bool = True, window: int = 0,
+               q_offset: int = 0) -> Plan:
+    """The bf16 kernel's plan, for a card that holds ``slots`` blocks of
+    this variant at once (the wrapper passes its SMs times the variant's
+    blocks per SM).
+
+    A row tile's key range is cut into S chunks of ``tiles_per_chunk``
+    whole tiles, one block each, when the grid leaves room on the card.
+    The last block of a row tile then reads every chunk's f32 partial on
+    one SM, so the merge grows with S times the rows while the keys a block
+    walks shrink with 1 / S: S starts near sqrt(keys / (2 * rows)) and
+    falls until all the blocks fit on the card at once (a second wave costs
+    more than the split saves).  Short prefills and calls whose grid fills
+    the card stay whole.  ``sweep.py`` times every chunk size against this
+    choice at qwen2-0.5b's and recurrentgemma-9b's shapes."""
+    rows, qt, bk = variant(hq, hkv, tq, hd)
+    row_tiles = -(-tq // qt)
+    whole = Plan(rows, qt, bk, row_tiles, 1, 1 << 30)
+    if row_tiles * hkv * batch >= slots:
+        return whole
+    ns = [_tiles(*key_range(rt * qt, min(tq, rt * qt + qt), tk, causal=causal,
+                            window=window, q_offset=q_offset), bk)
+          for rt in range(row_tiles)]
+    most = max(ns)
+    for want in range(min(most, MAX_SPLITS, math.isqrt(most * bk // (2 * rows))), 1, -1):
+        per = -(-most // want)
+        if hkv * batch * sum(max(1, -(-n // per)) for n in ns) <= slots:
+            return Plan(rows, qt, bk, row_tiles, -(-most // per), per)
+    return whole
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_launch.argtypes = [
-        i, p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
-        i, i, i, ctypes.c_float, i, p]
+        p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, p]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_bf16_launch.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, i, i, i, i, p, p, p]
+    lib.flash_attention_bf16_launch.restype = i
+    lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+    lib.flash_attention_smem_bytes.restype = i
+    lib.flash_attention_blocks_per_sm.argtypes = [i, i]
+    lib.flash_attention_blocks_per_sm.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(index: int, rows: int, hd: int) -> int:
+    """Blocks of the bf16 variant (rows, hd) device ``index`` holds at once."""
+    with torch.cuda.device(index):
+        per_sm = _lib().flash_attention_blocks_per_sm(rows, hd)
+    if per_sm <= 0:
+        raise RuntimeError(f"flash_attention_kernel ({rows} rows, hd {hd}) fits no SM")
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# One ticket per row tile of a split call, zero between launches (the
+# kernel's last block of each row tile resets its own).  Kept per (device,
+# stream) at its largest size and reused: launches on one stream run one
+# after another, so no two of them hold a ticket at once.
+_TICKETS: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = _TICKETS[device, stream] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                                   device=device)
+    return t
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -44,7 +155,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if not isinstance(x, torch.Tensor) or x.dim() != 4:
             raise ValueError(f"flash_attention takes 4-D (B, H, T, hd) tensors; "
                              f"{name} is {getattr(x, 'shape', type(x))}")
-        if x.dtype not in _DTYPES:
+        if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash_attention takes float32 or bfloat16, "
                             f"{name} is {x.dtype}")
         if x.device.type not in ("cpu", "cuda") or x.device != q.device:
@@ -61,6 +172,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{hq} query heads do not split over {k.shape[1]} kv heads")
 
 
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Every (b, h, t) row of ``x`` starts on 16 bytes, as the bf16 kernel's
+    ``cp.async`` copies need (strides of size-1 dims are never used)."""
+    return x.data_ptr() % 16 == 0 and all(
+        x.stride(i) * x.element_size() % 16 == 0 for i in range(3) if x.shape[i] > 1)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     bq: int = 256, bk: int = 256) -> torch.Tensor:
@@ -70,7 +188,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor launches the kernel; a CPU tensor takes the plain version
     (``mha_ref``).  On the card the inputs may be any strided views whose
     last dim is contiguous (the model passes transposed (B, T, H, hd)
-    projections and cache views), and the result lies in (B, Tq, Hq, hd)
+    projections and cache views); in bf16 every row must also start on 16
+    bytes (``ValueError`` otherwise: the kernel copies rows 16 bytes at a
+    time and has no slower path).  The result lies in (B, Tq, Hq, hd)
     memory, returned as its (B, Hq, Tq, hd) view, so the model's
     ``transpose(1, 2).reshape(B, Tq, Hq * hd)`` costs no copy.
     """
@@ -92,20 +212,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if max(tq, tk, abs(q_offset), window) >= 2 ** 31 or b > 65535 or hkv > 65535:
         raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} exceeds the "
                          f"kernel's int32 positions or grid")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and not all(rows_aligned(x) for x in (q, k, v)):
+        raise ValueError("flash_attention in bfloat16 takes rows that start on 16 "
+                         "bytes (pointer and b, h, t strides); copy the input first")
     out = torch.empty((b, tq, hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, out)
-                                         for i in range(3)))
-    qt = max(1, MAX_ROWS // group)
-    lib = _lib()
-    err = lib.flash_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, hq, hkv, tq, tk, hd, strides, int(causal), int(window), int(q_offset),
-        hd ** -0.5, qt, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention_kernel launch")
+    if bf16:
+        rows = variant(hq, hkv, tq, hd)[0]
+        plan = split_plan(b, hq, hkv, tq, tk, hd, slots=_slots(q.device.index or 0, rows, hd),
+                          causal=bool(causal), window=window, q_offset=q_offset)
+        run_bf16(q, k, v, out, plan, causal=causal, window=window, q_offset=q_offset)
+    else:
+        lib = _lib()
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, hq, hkv, tq, tk, hd, _strides(q, k, v, out), int(causal), int(window),
+            int(q_offset), hd ** -0.5, max(1, MAX_ROWS // group),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, err, "flash_attention_f32_kernel launch")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def _strides(*xs: torch.Tensor):
+    return (ctypes.c_longlong * 12)(*(x.stride(i) for x in xs for i in range(3)))
+
+
+def run_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             plan: Plan, *, causal: bool, window: int, q_offset: int) -> None:
+    """Launch the bf16 kernel on inputs :func:`flash_attention` has checked,
+    cut as ``plan`` says (the wrapper passes :func:`split_plan`'s; the
+    chunk-size sweep passes others).  Counts nothing."""
+    b, hq, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = tickets = None
+    if plan.splits > 1:
+        tiles = b * hkv * plan.row_tiles
+        ws = torch.empty(tiles * plan.splits * plan.rows * (2 + hd),
+                         dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, tiles)
+    lib = _lib()
+    err = lib.flash_attention_bf16_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, hq, hkv, tq, tk, hd, _strides(q, k, v, out), int(causal), int(window),
+        int(q_offset), hd ** -0.5, plan.rows, plan.bk, plan.qt, plan.splits,
+        plan.tiles_per_chunk, None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
+    _build.check(lib, err, "flash_attention_kernel launch")
