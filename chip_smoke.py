@@ -9,7 +9,8 @@ failure:
 
 1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build time, ``nvcc``'s register,
-   shared-memory and spill report, and the card's name and power limit;
+   shared-memory and spill report (K4's three kernels and K5 among them),
+   K4's time chunk and K5's stage, and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card:
    K1 and K2 at the shapes of the JAX package's kernel tests, at c = 0.25,
    and at the paper's 2400x600x600 f32 lattice (limits: 1e-6 for one
@@ -25,15 +26,18 @@ failure:
    recurrence) against ``wkv6_ref``, output and final state, at the shapes
    of ``tests/test_kernels.py`` in f32 (with the state carried across two
    calls) and at rwkv6-3b's 40 heads of 64 with bf16 r, k, v: prefill
-   128 and 1024 and each of the rwkv6-3b drain's 12 prompt lengths, and
-   decode (T = 1) from a carried state.  Limit, per element: 1e-5 of the
-   shape's largest |ref| (both sum the same f32 products in other orders).
+   128 and 1024 and each of the rwkv6-3b drain's 12 prompt lengths, at
+   C - 1, C and C + 1 (C its time chunk) and at 2 C + 5 and 3 C + 5, from
+   zero and from a carried state, and decode (T = 1) from a carried
+   state.  Limit, per element: 1e-5 of the shape's largest |ref| (both sum
+   the same f32 products in other orders).
    K5 (the RG-LRU scan) against ``rglru_scan_ref`` bit for bit (limit: 0
    unequal elements; each step is one rounded multiply and one rounded
    add in both), at the shapes of ``tests/test_kernels.py``, at
    recurrentgemma-9b's width 4096 at prefill 128 and 1024 and at each of
-   its drain's 12 prompt lengths, and at decode (T = 1) from a carried
-   state.  K3 at recurrentgemma-9b's shapes in bf16, 16 query heads over
+   its drain's 12 prompt lengths, at decode (T = 1) from a carried state,
+   and at widths 4096 and 4097 on either side of its shared-memory stage
+   and past its ring's wrap.  K3 at recurrentgemma-9b's shapes in bf16, 16 query heads over
    one kv head of 256, as the model's strided views: prefill with window
    2048 at 128, 1024 and the drain's lengths, decode over a 2048-slot ring
    at positions 0, 517 and 2047, and over a wrapped ring at 2100 and 4095
@@ -61,7 +65,8 @@ failure:
    second, prefill ms per request and decode ms per token are printed; one
    more drain under ``torch.profiler`` gives the card's idle share, its
    top device functions and each of the path's kernels' device time per
-   call in the drain.  Then the kernel path against the plain path: one
+   call in the drain, split into prefill and decode calls (a one-cycle
+   device sleep before and after each prefill marks them in the trace).  Then the kernel path against the plain path: one
    request, teacher-forced with the tokens the plain path
    (``use_kernel=False``) chose, through both; the prefill's and every
    decode step's logits must agree within the bf16 limit printed beside
@@ -93,7 +98,8 @@ failure:
    ``scaled_dot_product_attention``, which the port never calls); K4 at
    rwkv6-3b's prefill 1024 and 128 and decode (no PyTorch call computes
    the WKV recurrence, so it has no yardstick); K5 at recurrentgemma-9b's
-   prefill 1024 and 128 and decode (no yardstick either); K3 at
+   prefill 1024 and 128 and decode (no yardstick either), K4 and K5 beside
+   their previous designs' times; K3 at
    recurrentgemma-9b's hd-256 prefill and decode shapes beside SDPA;
 7. print the ``serving`` and ``kernels`` JSON lines, the card's name and
    power limit, and last the ``{"ok": true, ...}`` line.
@@ -160,12 +166,22 @@ K3_HEADLINE = "decode_517"    # 97 % of the path's launches are decode steps
 # place, as the model calls it
 K4_SHAPES = [("prefill_128", 128), ("prefill_1024", 1024), ("decode", 1)]
 K4_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
+# K4's time-chunk boundaries (offsets from TIME_CHUNK: one launch up to C,
+# three past it) and lengths of several chunks with a ragged last one
+K4_CHUNK_OFFSETS = (-1, 0, 1)
+K4_MULTI_CHUNK = (2, 3)       # T = m C + 5
 # tests/test_kernels.py's RG-LRU cases: b, t, w, chunk
 RGLRU_CASES = [(2, 128, 64, 32), (1, 256, 128, 128), (3, 64, 32, 64)]
 # K5 at recurrentgemma-9b's width (name, T), each from a carried state as the
 # model calls it (a prefill's state is its zero cache)
 K5_SHAPES = [("prefill_128", 128), ("prefill_1024", 1024), ("decode", 1)]
 K5_HEADLINE = "decode"        # 97 % of the path's launches are decode steps
+# K4 and K5 of the previous designs (one thread per state column walking all
+# of time; one thread per channel, 16 steps of loads in flight): phase 6's
+# ms on an H100 80GB HBM3 at 700 W (PERF.md §6), printed beside this run's
+# and kept out of the result lines, which carry only this run's measurements
+BEFORE_MS = {"wkv6": {"prefill_128": 0.0673, "prefill_1024": 0.7072, "decode": 0.0073},
+             "rglru": {"prefill_128": 0.0104, "prefill_1024": 0.0715, "decode": 0.0060}}
 # K3 at recurrentgemma-9b's shapes: (name, Tq, Tk, q_offset, window).  Prefill
 # passes the local layers' window; decode reads the 2048-slot ring with no
 # window (its slots are not in position order); the drain never wraps the
@@ -368,6 +384,28 @@ def top_kernels(spans, n: int = 8) -> list[str]:
             f"{name[:90]}" for name, t in rows]
 
 
+def kernel_calls(spans, markers, name) -> list[tuple[bool, float]]:
+    """(inside a prefill, device us) of each call of the wrapper ``name``:
+    a call starts at its first kernel (``<name>_kernel``) and takes in the
+    family's later kernels (``<name>_...``, launched after it) up to the next
+    call; its time is first start to last end.  A call lies inside a prefill
+    when an odd number of markers started before it."""
+    marks = sorted(st for _, st, _ in markers)
+    calls, i = [], 0
+    for fn, st, e in sorted(spans, key=lambda sp: sp[1]):
+        if f"{name}_kernel" in fn:
+            while i < len(marks) and marks[i] < st:
+                i += 1
+            calls.append([i % 2 == 1, st, e])
+        elif f"{name}_" in fn and calls:
+            calls[-1][2] = max(calls[-1][2], e)
+    return [(pre, (e - st) / 1e3) for pre, st, e in calls]
+
+
+def call_summary(us: list[float]) -> dict:
+    return {"calls": len(us), "total_ms": sum(us) / 1e3, "mean_us": sum(us) / max(len(us), 1)}
+
+
 def requests(cfg, request_cls) -> list:
     """The serving workload (numpy seed 0), with token ids under the
     config's vocabulary."""
@@ -490,6 +528,10 @@ def main() -> None:
             f"hd {hd}: {k3_lib.flash_attention_smem_bytes(dtype, rows, hd)} B"
             + (f" ({k3_lib.flash_attention_blocks_per_sm(rows, hd)} blocks per SM)"
                if dtype else "") for hd in k3_kernel.HEAD_DIMS))
+
+    print(f"wkv6: time chunks of {wkv_kernel.TIME_CHUNK} steps (a call up to one chunk "
+          f"is one launch, a longer one three); rglru: {rglru_kernel.stage_steps()} "
+          f"steps a shared-memory stage")
 
     def k3_plan(heads, tq, tk, qo=0, win=0):
         """K3's split plan on this card for (Hq, Hkv, hd) ``heads``."""
@@ -702,6 +744,28 @@ def main() -> None:
     for plen in sorted(len(r.tokens) for r in requests(rcfg, Request)):
         x = wkv_model_inputs(plen)
         k4_check(f"bf16 drain prefill {plen}", wkv6_cuda(*x, chunk=plen), wkv6_ref(*x))
+    # either side of the time chunk's boundary (one launch, then three) and
+    # several chunks with a ragged last one, from zero and from a carried state
+    c4 = wkv_kernel.TIME_CHUNK
+    for t in [c4 + d for d in K4_CHUNK_OFFSETS] + [m * c4 + 5 for m in K4_MULTI_CHUNK]:
+        x = wkv_model_inputs(t)
+        k4_check(f"bf16 T {t} (time chunk {c4}) from zero", wkv6_cuda(*x, chunk=t),
+                 wkv6_ref(*x))
+        k4_check(f"bf16 T {t} (time chunk {c4}) from a prefill's state",
+                 wkv6_cuda(*x, chunk=t, s0=prefill_state.clone()),
+                 wkv6_ref(*x, prefill_state))
+    # the three-kernel path at the narrower compiled head widths (the model
+    # runs hd 64 only), bf16 from a carried state
+    t = K4_MULTI_CHUNK[-1] * c4 + 5
+    for hdw in wkv_kernel.HEAD_DIMS[:-1]:
+        shape = (2, t, 3, hdw)
+        r, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(-6.0 + torch.randn(shape, generator=gen, device=dev)))
+        u = 0.5 * torch.rand((3, hdw), generator=gen, device=dev)
+        s0 = 0.5 * torch.randn((2, 3, hdw, hdw), generator=gen, device=dev)
+        k4_check(f"bf16 {shape} (time chunk {c4}) from a state",
+                 wkv6_cuda(r, k, v, w, u, chunk=t, s0=s0.clone()),
+                 wkv6_ref(r, k, v, w, u, s0))
     torch.cuda.synchronize()
     if k4_worst > 1.0:
         fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
@@ -752,6 +816,16 @@ def main() -> None:
         a, bx = rglru_model_inputs(plen)
         k5_check(f"f32 drain prefill {plen}", rglru_scan_cuda(a, bx, chunk=plen, h0=zero_h),
                  rglru_scan_ref(a, bx, zero_h))
+    # either side of a stage and past the ring's wrap, at the model's width
+    # (16-byte copies) and one past it (4-byte copies, a partial strip)
+    st5 = rglru_kernel.stage_steps()
+    for width in (gw, gw + 1):
+        for t in (st5 - 1, st5, st5 + 1, 6 * st5 + 1):
+            a = 0.5 + 0.499 * torch.rand((1, t, width), generator=gen, device=dev)
+            bb = 0.1 * torch.randn((1, t, width), generator=gen, device=dev)
+            h0 = torch.randn((1, width), generator=gen, device=dev)
+            k5_check(f"f32 {(1, t, width)} across stages", rglru_scan_cuda(a, bb, chunk=t, h0=h0),
+                     rglru_scan_ref(a, bb, h0))
     torch.cuda.synchronize()
     if k5_unequal:
         fail(f"K5 differs from rglru_scan_ref in {k5_unequal} elements")
@@ -872,6 +946,19 @@ def main() -> None:
 
         from torch.profiler import ProfilerActivity, profile
         engine = new_engine("locality")
+        # a device sleep of one cycle before and after each prefill marks the
+        # prefill calls' records in the trace
+        prefills = []
+
+        def marked_prefill(*args):
+            prefills.append(1)
+            torch.cuda._sleep(1)
+            out = model.prefill(*args)
+            torch.cuda._sleep(1)
+            return out
+
+        for rep in engine.replicas:
+            rep._prefill = marked_prefill
         torch.cuda.synchronize()
         zero_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -882,7 +969,15 @@ def main() -> None:
         prof_launches = counts()
         t0 = time.perf_counter()
         spans = device_spans(prof)
+        markers = [sp for sp in spans if sp[0] == marker_name]
+        spans = [sp for sp in spans if sp[0] != marker_name]
         busy = busy_ms(spans)
+        print(f"profiled drain: {len(prefills)} prefills, {len(markers)} prefill markers "
+              f"({marker_name})")
+        # the prefill/decode split below rests on two markers per prefill
+        if len(prefills) != N_REQUESTS or len(markers) != 2 * len(prefills):
+            fail(f"{arch} profiled drain: {len(prefills)} prefills, {len(markers)} "
+                 f"markers, want {N_REQUESTS} and two each")
         print(f"profiler: {len(spans)} device records read in "
               f"{time.perf_counter() - t0:.1f} s")
         if busy <= 0 or not path_ok(prof_launches, want):
@@ -894,17 +989,30 @@ def main() -> None:
         print("\n".join(top_kernels(spans)))
         in_drain = {}
         for name in want:
-            times = [(e - st) / 1e3 for fn, st, e in spans if f"{name}_kernel" in fn]
-            in_drain[name] = {"calls": len(times), "total_ms": sum(times) / 1e3,
-                              "mean_us": sum(times) / max(len(times), 1)}
-            print(f"{arch} profiled drain, {name}_kernel: {len(times)} calls, "
-                  f"{sum(times) / 1e3:.3f} ms, {in_drain[name]['mean_us']:.3f} us per call "
-                  f"({sum(times) / 1e3 / busy:.1%} of device busy time)")
+            calls = kernel_calls(spans, markers, name)
+            in_drain[name] = call_summary([us for _, us in calls]) | {
+                kind: call_summary([us for pre, us in calls if pre == (kind == "prefill")])
+                for kind in ("prefill", "decode")}
+            # one prefill call per layer and request
+            if in_drain[name]["prefill"]["calls"] != want[name] // (1 + MAX_NEW):
+                fail(f"{arch} profiled drain, {name}: {in_drain[name]['prefill']['calls']} "
+                     f"prefill calls, want {want[name] // (1 + MAX_NEW)}")
+            print(f"{arch} profiled drain, {name}: " + "; ".join(
+                f"{kind} {m['calls']} calls, {m['total_ms']:.3f} ms, {m['mean_us']:.3f} us per call"
+                for kind, m in (("all", in_drain[name]), ("prefill", in_drain[name]["prefill"]),
+                                ("decode", in_drain[name]["decode"])))
+                + f" ({in_drain[name]['total_ms'] / busy:.1%} of device busy time)")
         del engine, prof, spans
         result = {p: {k: v for k, v in m.items() if k != "stats"}
                   | {"stats": vars(m["stats"])} for p, m in metrics.items()}
         result.update(idle_share=idle_share, kernels_in_drain=in_drain)
         return model, params, result
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    marker_name = device_spans(prof)[0][0]      # the prefill markers' kernel
 
     def teacher_forced(arch, cfg, model, params, faults=None):
         """The kernel path against the plain path (``use_kernel=False``) on
@@ -1124,10 +1232,12 @@ def main() -> None:
             "ms": device_ms(lambda: wkv6_cuda(r, k, v, w, u, chunk=t, s0=s0)),
             "plain_ms": device_ms(lambda: wkv6_ref(r, k, v, w, u, s0), 3),
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        m = k4[name]
+        m, before = k4[name], BEFORE_MS["wkv6"][name]
         print(f"wkv6 {name} {(1, t, rh, rhd)}: {m['ms']:.4f} ms, bound {bnd:.6f} ms "
-              f"by {by} ({bnd / m['ms']:.2%} of bound), plain {m['plain_ms']:.4f} ms, "
-              f"library: none (no PyTorch call computes the WKV recurrence)")
+              f"by {by} ({bnd / m['ms']:.2%} of bound), previous design "
+              f"{before:.4f} ms ({before / m['ms']:.2f}x), plain "
+              f"{m['plain_ms']:.4f} ms, library: none (no PyTorch call computes the "
+              f"WKV recurrence)")
 
     # K5 at recurrentgemma-9b's width, from a carried state as the model calls
     # it (no single PyTorch call computes a linear recurrence: no yardstick).
@@ -1141,9 +1251,10 @@ def main() -> None:
             "ms": device_ms(lambda: rglru_scan_cuda(a, bx, chunk=t, h0=h0)),
             "plain_ms": device_ms(lambda: rglru_scan_ref(a, bx, h0), 3),
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        m = k5[name]
+        m, before = k5[name], BEFORE_MS["rglru"][name]
         print(f"rglru {name} {(1, t, gw)}: {m['ms']:.4f} ms, bound {bnd:.6f} ms by {by} "
-              f"({bnd / m['ms']:.2%} of bound), plain {m['plain_ms']:.4f} ms, "
+              f"({bnd / m['ms']:.2%} of bound), previous design {before:.4f} ms "
+              f"({before / m['ms']:.2f}x), plain {m['plain_ms']:.4f} ms, "
               f"library: none (no PyTorch call computes the recurrence)")
 
     # K3 at recurrentgemma-9b's hd-256 shapes (prefill with window 2048, which

@@ -20,71 +20,111 @@
 // that is 50.3 MB, 15.0 us at 3.35 TB/s.  A decode step (T = 1) moves 64 KB,
 // 0.02 us: far below a launch, so decode is launch-bound.
 //
-// Design.  The TPU kernel walks a sequential grid axis of time chunks and
-// carries the (W,) state in VMEM scratch from one chunk to the next.  Blocks
-// on the card run in no order, so here one thread owns one (batch, channel)
-// column and walks all of time itself, h in a register; neighbouring threads
-// own neighbouring channels, so every load and store of a warp is 128
-// contiguous bytes.  The loads of a and b do not depend on h: a thread keeps
-// the next RUN steps' loads in flight while it computes the current run, so
-// their latency overlaps the dependent chain.  Any T is taken: the TPU
-// kernel's T % chunk rule is the wrapper's contract only.  At B = 1 only
-// W / 128 blocks are busy (32 at W = 4096), far from filling 132 SMs; a
-// two-pass chunked scan over T (chunk-local scans, then the carries) is
-// later work: this version is right and simple first.
+// Design: a pipelined walk that fills the card.  The TPU kernel walks a
+// sequential grid axis of time chunks and carries the (W,) state in VMEM.
+// Here each channel still walks all of time in order, in one thread, so
+// every step is rounded as in the plain loop; what changes is how the bytes
+// arrive.  A block is one warp owning a strip of 32 channels of one batch
+// row (128 strips at W = 4096 and B 1, for 132 SMs).  a and b come in
+// stages of S steps x 32 channels (128-byte rows) through a ring of STAGES
+// shared-memory slots filled by cp.async (16 B a copy where W is a multiple
+// of 4, else 4 B); STAGES - 1 stages, 32 KB, are in flight while the warp
+// walks the current one.  That covers the card's rate over its latency
+// (3.35 TB/s x about 1 us, over 132 SMs: 25 KB an SM).  A channel's
+// dependent chain at T = 1024 is 1024 rounded multiply-add pairs, a few
+// microseconds, under the byte bound, so time is not split.  Each step's
+// 32 results go out as one 128-byte store.  Any T is taken: the TPU
+// kernel's T % chunk rule is the wrapper's contract only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;   // channels per block
-constexpr int RUN = 16;        // steps whose loads are in flight at once
+constexpr int STRIP = 32;    // channels per block (one warp)
+constexpr int S = 32;        // steps per stage
+constexpr int STAGES = 5;    // ring slots
 
-// Steps t0 .. t0 + RUN - 1 of one column into registers, zero past t.
-__device__ __forceinline__ void fetch_run(const float* __restrict__ a,
-                                          const float* __restrict__ b,
-                                          long long col, int w, int t0, int t,
-                                          float (&ra)[RUN], float (&rb)[RUN]) {
-#pragma unroll
-  for (int i = 0; i < RUN; ++i) {
-    const bool in = t0 + i < t;
-    const long long off = col + (long long)(t0 + i) * w;
-    ra[i] = in ? __ldg(a + off) : 0.f;
-    rb[i] = in ? __ldg(b + off) : 0.f;
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(d), "l"(src));
 }
 
-// Grid: (ceil(W / THREADS), B).  Thread x of block (bx, by) owns channel
-// bx * THREADS + x of batch row by.
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Grid: (ceil(W / STRIP), B).  Lane x of block (bx, by) owns channel
+// bx * STRIP + x of batch row by.  VEC floats per copy: 4 or 1.
+template <int VEC>
+__global__ void __launch_bounds__(STRIP)
 rglru_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const float* __restrict__ h0, float* __restrict__ out, int t, int w) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  if (c >= w) return;
+  __shared__ __align__(16) float sa[STAGES][S][STRIP];
+  __shared__ __align__(16) float sb[STAGES][S][STRIP];
+  constexpr int PER_ROW = STRIP / VEC;     // copies per row of a stage
+  constexpr int ROWS = 32 / PER_ROW;       // rows per pass of the warp
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * STRIP, c = c0 + lane;
   const long long row = blockIdx.y;
-  const long long col = row * t * w + c;     // (row, 0, c)
-  float h = h0 ? h0[row * w + c] : 0.f;
+  const long long base = row * t * w + c0;   // (row, 0, c0)
+  const int stages = (t + S - 1) / S;
+  const int q = lane % PER_ROW, ch = c0 + q * VEC;
 
-  float ca[RUN], cb[RUN];
-  fetch_run(a, b, col, w, 0, t, ca, cb);
-  for (int t0 = 0; t0 < t; t0 += RUN) {
-    float na[RUN], nb[RUN];
-    fetch_run(a, b, col, w, t0 + RUN, t, na, nb);   // in flight during this run
-    const int n = min(RUN, t - t0);
-#pragma unroll
-    for (int i = 0; i < RUN; ++i) {
-      if (i < n) {
-        h = __fadd_rn(__fmul_rn(ca[i], h), cb[i]);
-        out[col + (long long)(t0 + i) * w] = h;
+  // stage st (steps st·S .. st·S + S - 1) into slot st % STAGES; a group is
+  // committed even when empty, so the count of groups stays regular
+  auto issue = [&](int st) {
+    const int slot = st % STAGES, t0 = st * S;
+    if (ch < w) {
+      for (int s = lane / PER_ROW; s < S && t0 + s < t; s += ROWS) {
+        const long long off = base + (long long)(t0 + s) * w + q * VEC;
+        if (VEC == 4) {
+          cp_async16(&sa[slot][s][q * VEC], a + off);
+          cp_async16(&sb[slot][s][q * VEC], b + off);
+        } else {
+          cp_async4(&sa[slot][s][q * VEC], a + off);
+          cp_async4(&sb[slot][s][q * VEC], b + off);
+        }
       }
     }
+    cp_async_commit();
+  };
+
 #pragma unroll
-    for (int i = 0; i < RUN; ++i) {
-      ca[i] = na[i];
-      cb[i] = nb[i];
+  for (int st = 0; st < STAGES - 1; ++st) issue(st);
+  float h = h0 != nullptr && c < w ? h0[row * w + c] : 0.f;
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<STAGES - 2>();   // this lane's copies of stage st have landed
+    __syncwarp();                  // every lane's, and slot (st - 1) is consumed
+    issue(st + STAGES - 1);        // into the slot stage st - 1 left
+    const int slot = st % STAGES, t0 = st * S, n = min(S, t - t0);
+    if (c < w) {
+      float* o = out + base + (long long)t0 * w + lane;
+      if (n == S) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          h = __fadd_rn(__fmul_rn(sa[slot][s][lane], h), sb[slot][s][lane]);
+          o[(long long)s * w] = h;
+        }
+      } else {
+        for (int s = 0; s < n; ++s) {
+          h = __fadd_rn(__fmul_rn(sa[slot][s][lane], h), sb[slot][s][lane]);
+          o[(long long)s * w] = h;
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -97,11 +137,19 @@ int rglru_launch(const float* a, const float* b, const float* h0, float* out,
                  int batch, int t, int w, void* stream) {
   if (batch <= 0 || batch > 65535 || t <= 0 || w <= 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((w + THREADS - 1) / THREADS, batch);
-  rglru_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, h0, out, t, w);
+  dim3 grid((w + STRIP - 1) / STRIP, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (vec)
+    rglru_kernel<4><<<grid, STRIP, 0, s>>>(a, b, h0, out, t, w);
+  else
+    rglru_kernel<1><<<grid, STRIP, 0, s>>>(a, b, h0, out, t, w);
   return (int)cudaGetLastError();
 }
+
+// Steps per shared-memory stage (the tests cross its boundaries).
+int rglru_stage_steps() { return S; }
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

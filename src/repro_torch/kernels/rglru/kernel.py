@@ -5,10 +5,11 @@ Replaces the Pallas kernel ``_rglru_kernel`` of
 ``repro/kernels/rglru/kernel.py`` (reached through ``rglru_scan_pallas``).
 The kernel is ``rglru_kernel`` in ``repro_torch/csrc/rglru.cu``; its note
 gives the bound (bytes: a and b read once, h written once) and the design:
-one thread per (batch, channel) column walking all of time, with a run of
-steps' loads in flight ahead of the dependent chain.  Each step is a
-multiply and an add, each rounded once, so it equals ``rglru_scan_ref``
-bit for bit.
+a pipelined walk, one warp per strip of 32 channels (128 strips at W 4096,
+B 1), each channel walking all of time in one thread while ``cp.async``
+keeps four stages of a and b (32 steps x 32 channels each) in flight in a
+ring of shared memory.  Each step is a multiply and an add, each rounded
+once, so it equals ``rglru_scan_ref`` bit for bit.
 
 Beyond the reference's contract, the wrapper takes a carried-in state
 ``h0`` (parity is held against ``rglru_scan_ref(h0=...)``).  ``chunk``
@@ -33,7 +34,13 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rglru_launch.argtypes = [p, p, p, p, i, i, i, p]
     lib.rglru_launch.restype = i
+    lib.rglru_stage_steps.restype = i
     return lib
+
+
+def stage_steps() -> int:
+    """Steps per shared-memory stage of the compiled kernel (needs nvcc)."""
+    return _lib().rglru_stage_steps()
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> None:

@@ -93,7 +93,7 @@ def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
 
     The reference folds ``a_0 * h0`` into ``bx_0`` and scans from zero;
     the plain loop and K5 add the same two rounded terms at step 0."""
-    return rglru_scan(a, bx, h0, use_kernel=use_kernel)
+    return rglru_scan(a, bx, use_kernel, h0=h0)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -108,7 +108,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     w = torch.exp(-torch.exp(decay)).reshape(b, t, h, hd)
 
     s0 = cache["s"] if cache is not None else None
-    o, st = wkv6(r, k, v, w, p["u"].float(), s0, use_kernel=use_kernel)
+    o, st = wkv6(r, k, v, w, p["u"].float(), use_kernel, s0=s0)
 
     # group norm over each head (population variance, as jnp.var)
     og = o.reshape(b, t, h, hd)

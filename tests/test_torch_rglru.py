@@ -37,6 +37,7 @@ from repro.kernels.rglru.kernel import rglru_scan_pallas
 from repro.models import rglru as jax_rglru
 from repro.models.model import build_model as jax_build_model
 from repro_torch import configs
+from repro_torch.kernels.rglru import kernel as rglru_kernel
 from repro_torch.kernels.rglru import ops, ref
 from repro_torch.kernels.rglru.kernel import rglru_scan_cuda
 from repro_torch.models import rglru
@@ -166,7 +167,7 @@ class TestScan:
         h0 = _h0(3, 40)
         want = jax_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(bb), jnp.asarray(h0))
         got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(bb),
-                             torch.from_numpy(h0))
+                             h0=torch.from_numpy(h0))
         np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
 
     def test_state_continuity_between_calls(self):
@@ -175,7 +176,7 @@ class TestScan:
         a, bb = map(torch.from_numpy, _scan_inputs(2, 128, 32, seed=3))
         full = ref.rglru_scan_ref(a, bb)
         h1 = rglru_scan_cuda(a[:, :64], bb[:, :64], chunk=32)
-        h2 = ops.rglru_scan(a[:, 64:], bb[:, 64:], h1[:, -1])
+        h2 = ops.rglru_scan(a[:, 64:], bb[:, 64:], h0=h1[:, -1])
         torch.testing.assert_close(torch.cat([h1, h2], 1), full, rtol=0, atol=0)
 
     @pytest.mark.parametrize("b,t,w,chunk", CASES)
@@ -191,12 +192,40 @@ class TestScan:
         with pytest.raises(ValueError, match="not divisible"):
             rglru_scan_cuda(a, bb, chunk=32)
 
+    def test_reference_positional_call_takes_the_plain_path(self, monkeypatch):
+        """``rglru_scan(a, b, False)``, the reference's positional
+        ``use_pallas=False``, takes the plain path and equals the
+        reference's own call (its associative scan)."""
+        a, bb = _scan_inputs(2, 40, 24, seed=5)
+        want = jax_ops.rglru_scan(jnp.asarray(a), jnp.asarray(bb), False)
+
+        def refuse(*args, **kw):
+            raise AssertionError("the kernel wrapper was called")
+
+        monkeypatch.setattr(ops, "rglru_scan_cuda", refuse)
+        got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(bb), False)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
+
+    def test_a_fourth_positional_argument_raises(self):
+        a, bb = map(torch.from_numpy, _scan_inputs(1, 4, 8))
+        with pytest.raises(TypeError):
+            ops.rglru_scan(a, bb, True, torch.zeros(1, 8))
+
+    @pytest.mark.parametrize("use_kernel", [True, False])
+    def test_h0_by_keyword_carries_the_state(self, use_kernel):
+        a, bb = _scan_inputs(2, 13, 24, seed=6)
+        h0 = _h0(2, 24, seed=7)
+        want = jax_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(bb), jnp.asarray(h0))
+        got = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(bb), use_kernel,
+                             h0=torch.from_numpy(h0))
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
+
     def test_rejects_mismatched_shapes(self):
         a, bb = map(torch.from_numpy, _scan_inputs(2, 8, 16))
         with pytest.raises(ValueError, match="b is"):
             ops.rglru_scan(a, bb[:, :4])
         with pytest.raises(ValueError, match="h0 is"):
-            ops.rglru_scan(a, bb, torch.zeros(2, 8))
+            ops.rglru_scan(a, bb, h0=torch.zeros(2, 8))
         with pytest.raises(ValueError, match=r"\(B, T, W\)"):
             ops.rglru_scan(a[0], bb[0])
 
@@ -357,9 +386,9 @@ class TestModel:
         cfg, _, _, _, pp = pair
         seen = []
 
-        def spy(a, b, h0=None, *, use_kernel=True):
+        def spy(a, b, use_kernel=True, *, h0=None):
             seen.append((a.shape[1], h0 is not None, use_kernel))
-            return ops.rglru_scan(a, b, h0, use_kernel=use_kernel)
+            return ops.rglru_scan(a, b, use_kernel, h0=h0)
 
         monkeypatch.setattr(rglru, "rglru_scan", spy)
         pm = build_model(cfg, device="cpu", use_kernel=False)
@@ -427,14 +456,14 @@ class TestKernelOnCard:
     def test_model_shapes(self, cuda, t, carried):
         a, bb = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(1, t, 4096, seed=t))
         h0 = torch.from_numpy(_h0(1, 4096)).to(cuda) if carried else None
-        torch.testing.assert_close(ops.rglru_scan(a, bb, h0),
+        torch.testing.assert_close(ops.rglru_scan(a, bb, h0=h0),
                                    ref.rglru_scan_ref(a, bb, h0), rtol=0, atol=0)
 
     def test_state_continuity(self, cuda):
         a, bb = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(2, 100, 200, seed=4))
         h1 = ops.rglru_scan(a[:, :37].contiguous(), bb[:, :37].contiguous())
         h2 = ops.rglru_scan(a[:, 37:].contiguous(), bb[:, 37:].contiguous(),
-                            h1[:, -1].contiguous())
+                            h0=h1[:, -1].contiguous())
         torch.testing.assert_close(torch.cat([h1, h2], 1), ref.rglru_scan_ref(a, bb),
                                    rtol=0, atol=0)
 
@@ -444,3 +473,16 @@ class TestKernelOnCard:
             ops.rglru_scan(a[:, :, ::2], bb[:, :, ::2])
         with pytest.raises(TypeError, match="float32"):
             ops.rglru_scan(a.bfloat16(), bb.bfloat16())
+
+    # widths either side of a 32-channel strip and not a multiple of 4 (the
+    # 4-byte copies), a multiple of 4 with a partial strip (16-byte copies);
+    # lengths either side of a stage and past the ring's wrap
+    @pytest.mark.parametrize("w", [31, 33, 100, 4095, 4097])
+    @pytest.mark.parametrize("stages,extra", [(1, -1), (1, 0), (1, 1), (6, 1)])
+    def test_strip_and_stage_edges(self, cuda, w, stages, extra):
+        t = stages * rglru_kernel.stage_steps() + extra
+        a, bb = (torch.from_numpy(x).to(cuda) for x in _scan_inputs(3, t, w, seed=w + t))
+        h0 = torch.from_numpy(_h0(3, w)).to(cuda)
+        for h in (None, h0):
+            torch.testing.assert_close(ops.rglru_scan(a, bb, h0=h),
+                                       ref.rglru_scan_ref(a, bb, h), rtol=0, atol=0)

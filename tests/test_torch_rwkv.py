@@ -27,7 +27,10 @@ decode against its own full forward at ``tests/test_models_smoke.py``'s
 2e-4 + 1e-3 |ref|.  The tests marked ``cuda`` hold K4 against
 ``wkv6_ref`` on the card and skip without one: per element, 1e-5 of the
 shape's largest |ref| (both sum the same f32 products from the same
-bf16-rounded r, k, v, in other orders).
+bf16-rounded r, k, v, in other orders).  ``_chunked_wkv6`` emulates K4's
+three phases (local chunks from zero, the carry, the correction) in plain
+PyTorch, off the main path, and is held to the same 1e-5 of the largest
+|ref| against both packages' ``wkv6_ref`` at the chunk boundaries.
 """
 import dataclasses
 
@@ -45,6 +48,7 @@ from repro.kernels.rwkv6 import ref as jax_ref
 from repro.models import rwkv as jax_rwkv
 from repro.models.model import build_model as jax_build_model
 from repro_torch import configs
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ops, ref
 from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
 from repro_torch.models import rwkv
@@ -58,6 +62,12 @@ CASES = [(2, 64, 2, 16, 32), (1, 128, 4, 32, 64), (2, 32, 1, 8, 32)]
 # serving drain's first prompt, ragged in the kernel's 32-step runs) and
 # decode from a carried state
 MODEL_CASES = [(128, False), (1024, False), (891, False), (1, True)]
+# K4's time chunk, and lengths on either side of its boundaries: one launch
+# (1, C - 1, C) and three (C + 1, several chunks with a ragged last one)
+CHUNK = wkv_kernel.TIME_CHUNK
+CHUNK_LENGTHS = [1, CHUNK - 1, CHUNK, CHUNK + 1, 3 * CHUNK + 5]
+# K4's limit per element of o and sT: this share of the shape's largest |ref|
+K4_REL = 1e-5
 # the leaves the reference initialises to a constant, and the scale of the
 # random values that replace them in the parity tests
 PERTURB = {"mix_lora_b": 0.5, "decay_lora_b": 0.5, "gn_bias": 0.1,
@@ -86,6 +96,71 @@ def _wkv_inputs(b, t, h, hd, seed=0):
 def _state(b, h, hd, seed=1):
     return (np.random.default_rng(seed).standard_normal((b, h, hd, hd)) * 0.5
             ).astype(np.float32)
+
+
+def _extreme_decays(w):
+    """``w`` with decays planted in whole rows of every head: 1e-30 every
+    7th step in rows 1 mod 8 (two in a chunk underflow its product to 0),
+    exactly 0 every 11th step in rows 2 mod 8, and 1.0 throughout rows 3
+    mod 8."""
+    w = w.copy()
+    steps = np.arange(w.shape[1])
+    w[:, steps % 7 == 2, :, 1::8] = 1e-30
+    w[:, steps % 11 == 3, :, 2::8] = 0.0
+    w[..., 3::8] = 1.0
+    return w
+
+
+def _chunked_wkv6(r, k, v, w, u, s0=None, chunk=CHUNK):
+    """K4's decomposition in plain PyTorch: (o, sT).  Up to ``chunk`` steps,
+    one pass from ``s0``.  Longer: (1) each chunk from a zero state gives
+    local outputs, its local end state and its decay product; (2) the
+    carry S_{c+1} = diag(Δ_c) S_c + Ŝ_c from ``s0``; (3) each chunk's
+    outputs gain S_cᵀ (r_t ⊙ D_t), D_t the decays since the chunk began.
+    Each pass sums as K4 does: o = Sᵀ r + v Σ_i r_i u_i k_i."""
+    r, k, v = (x.float() for x in (r, k, v))
+    b, t, h, hd = r.shape
+    ruk = (r * u * k).sum(-1)
+
+    def walk(lo, hi, s):
+        outs = []
+        for i in range(lo, hi):
+            outs.append(torch.einsum("bhij,bhi->bhj", s, r[:, i])
+                        + v[:, i] * ruk[:, i, :, None])
+            s = w[:, i, :, :, None] * s + k[:, i, :, :, None] * v[:, i, :, None, :]
+        return torch.stack(outs, 1), s
+
+    zero = torch.zeros((b, h, hd, hd))
+    s = zero if s0 is None else s0.float()
+    if t <= chunk:
+        return walk(0, t, s)
+    bounds = [(lo, min(t, lo + chunk)) for lo in range(0, t, chunk)]
+    o = torch.empty((b, t, h, hd))
+    local = []
+    for lo, hi in bounds:
+        o[:, lo:hi], s_end = walk(lo, hi, zero)
+        delta = torch.ones((b, h, hd))
+        for i in range(lo, hi):
+            delta = delta * w[:, i]
+        local.append((s_end, delta))
+    carried = []
+    for s_end, delta in local:
+        carried.append(s)
+        s = delta[..., None] * s + s_end
+    for (lo, hi), s_c in zip(bounds, carried):
+        d = torch.ones((b, h, hd))
+        for i in range(lo, hi):
+            o[:, i] += torch.einsum("bhij,bhi->bhj", s_c, r[:, i] * d)
+            d = d * w[:, i]
+    return o, s
+
+
+def _assert_within_k4_limit(got, want):
+    """Per element of o and sT: |got - want| <= K4_REL x the largest |want|."""
+    for g, r in zip(got, want):
+        g, r = _np(g), _np(r)
+        assert np.abs(g - r).max() <= K4_REL * np.abs(r).max(), \
+            (np.abs(g - r).max(), np.abs(r).max())
 
 
 def _perturbed(tree, seed=0):
@@ -179,7 +254,7 @@ class TestWKV6:
         x = [torch.from_numpy(a) for a in (r, k, v, w)]
         uu = torch.from_numpy(u)
         o1, s1 = wkv6_cuda(*(a[:, :64] for a in x), uu, chunk=32)
-        o2, s2 = ops.wkv6(*(a[:, 64:] for a in x), uu, s1)
+        o2, s2 = ops.wkv6(*(a[:, 64:] for a in x), uu, s0=s1)
         np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(), _np(o_full),
                                    rtol=0, atol=1e-4)
         np.testing.assert_allclose(s2.numpy(), _np(s_full), rtol=0, atol=1e-4)
@@ -191,7 +266,7 @@ class TestWKV6:
         want_o, want_s = jax_ref.wkv6_ref(*map(jnp.asarray, (r, k, v, w, u)),
                                           s0=jnp.asarray(s0))
         got_o, got_s = ops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)),
-                                torch.from_numpy(s0))
+                                s0=torch.from_numpy(s0))
         np.testing.assert_allclose(got_o.numpy(), _np(want_o), rtol=0, atol=1e-4)
         np.testing.assert_allclose(got_s.numpy(), _np(want_s), rtol=0, atol=1e-4)
 
@@ -215,7 +290,7 @@ class TestWKV6:
         r, k, v, w, u = map(torch.from_numpy, _wkv_inputs(1, 9, 2, 8, seed=6))
         s0 = torch.from_numpy(_state(1, 2, 8))
         want_o, want_s = ref.wkv6_ref(r, k, v, w, u, s0.clone())
-        o, s = ops.wkv6(r, k, v, w, u, s0, use_kernel=use_kernel)
+        o, s = ops.wkv6(r, k, v, w, u, use_kernel, s0=s0)
         assert s is s0
         torch.testing.assert_close(o, want_o, rtol=0, atol=0)
         torch.testing.assert_close(s0, want_s, rtol=0, atol=0)
@@ -230,9 +305,57 @@ class TestWKV6:
         with pytest.raises(ValueError, match="u is"):
             ops.wkv6(r, k, v, w, u[:1])
         with pytest.raises(ValueError, match="s0 is"):
-            ops.wkv6(r, k, v, w, u, torch.zeros(1, 2, 8, 4))
+            ops.wkv6(r, k, v, w, u, s0=torch.zeros(1, 2, 8, 4))
         with pytest.raises(TypeError, match="share"):
             ops.wkv6(r, k.double(), v, w, u)
+
+
+    def test_reference_positional_call_takes_the_plain_path(self, monkeypatch):
+        """``wkv6(r, k, v, w, u, False)``, the reference's positional
+        ``use_pallas=False``, takes the plain path and equals the
+        reference's own call."""
+        args = _wkv_inputs(2, 21, 3, 16, seed=7)
+        want_o, want_s = jax_ops.wkv6(*map(jnp.asarray, args), False)
+
+        def refuse(*a, **kw):
+            raise AssertionError("the kernel wrapper was called")
+
+        monkeypatch.setattr(ops, "wkv6_cuda", refuse)
+        o, s = ops.wkv6(*map(torch.from_numpy, args), False)
+        np.testing.assert_allclose(o.numpy(), _np(want_o), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(s.numpy(), _np(want_s), rtol=0, atol=1e-4)
+
+    def test_a_seventh_positional_argument_raises(self):
+        r, k, v, w, u = map(torch.from_numpy, _wkv_inputs(1, 4, 1, 8))
+        with pytest.raises(TypeError):
+            ops.wkv6(r, k, v, w, u, True, torch.zeros(1, 1, 8, 8))
+
+    @pytest.mark.parametrize("use_kernel", [True, False])
+    def test_s0_by_keyword_carries_the_state(self, use_kernel):
+        r, k, v, w, u = _wkv_inputs(1, 11, 2, 8, seed=8)
+        s0 = _state(1, 2, 8, seed=9)
+        want_o, want_s = jax_ref.wkv6_ref(*map(jnp.asarray, (r, k, v, w, u)),
+                                          s0=jnp.asarray(s0))
+        o, s = ops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)), use_kernel,
+                        s0=torch.from_numpy(s0))
+        np.testing.assert_allclose(o.numpy(), _np(want_o), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(s.numpy(), _np(want_s), rtol=0, atol=1e-4)
+
+    @pytest.mark.parametrize("hd", [8, 16, 32, 64])
+    @pytest.mark.parametrize("t", CHUNK_LENGTHS)
+    @pytest.mark.parametrize("with_s0", [False, True])
+    def test_chunked_decomposition(self, hd, t, with_s0):
+        """K4's three phases, emulated, against both packages' ``wkv6_ref``
+        within 1e-5 of the largest |ref|, with decays of 0, 1e-30 and 1."""
+        r, k, v, w, u = _wkv_inputs(1, t, 2, hd, seed=hd + t)
+        w = _extreme_decays(w)
+        s0 = _state(1, 2, hd) if with_s0 else None
+        x = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+        s0_t = None if s0 is None else torch.from_numpy(s0)
+        got = _chunked_wkv6(*x, s0_t)
+        _assert_within_k4_limit(got, ref.wkv6_ref(*x, s0=s0_t))
+        _assert_within_k4_limit(got, jax_ref.wkv6_ref(
+            *map(jnp.asarray, (r, k, v, w, u)), s0=None if s0 is None else jnp.asarray(s0)))
 
 
 class TestBlocks:
@@ -305,9 +428,9 @@ class TestBlocks:
         cfg, _, pl = self._layer(pair)
         seen = {}
 
-        def spy(r, k, v, w, u, s0=None, **kw):
+        def spy(r, k, v, w, u, use_kernel=True, *, s0=None):
             seen.update(r=r.dtype, k=k.dtype, v=v.dtype, w=w.dtype, u=u.dtype)
-            return ops.wkv6(r, k, v, w, u, s0, **kw)
+            return ops.wkv6(r, k, v, w, u, use_kernel, s0=s0)
 
         monkeypatch.setattr(rwkv, "wkv6", spy)
         rwkv.rwkv_time_mix(pl, torch.zeros(1, 3, cfg.d_model), cfg)
@@ -450,7 +573,7 @@ class TestKernelOnCard:
         r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
         s0 = torch.from_numpy(_state(1, 40, 64)).to(cuda) if carried else None
         want = ref.wkv6_ref(r, k, v, w, u, s0)
-        got = ops.wkv6(r, k, v, w, u, s0)
+        got = ops.wkv6(r, k, v, w, u, s0=s0)
         self._close(got, want)
 
     def test_rejects_a_strided_input(self, cuda):
@@ -458,3 +581,85 @@ class TestKernelOnCard:
         with pytest.raises(ValueError, match="contiguous"):
             wkv6_cuda(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u,
                       chunk=8)
+
+    def test_rejects_a_misaligned_input(self, cuda):
+        r, k, v, w, u = (torch.from_numpy(a).to(cuda) for a in _wkv_inputs(1, 8, 2, 16))
+        r_off = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape).copy_(r)
+        with pytest.raises(ValueError, match="16 bytes"):
+            wkv6_cuda(r_off, k, v, w, u, chunk=8)
+
+    @pytest.mark.parametrize("hd", [8, 16, 32, 64])
+    @pytest.mark.parametrize("t", CHUNK_LENGTHS)
+    @pytest.mark.parametrize("with_s0", [False, True])
+    def test_chunk_boundaries(self, cuda, hd, t, with_s0):
+        r, k, v, w, u = _wkv_inputs(2, t, 3, hd, seed=hd + t)
+        x = [torch.from_numpy(a).to(cuda) for a in (r, k, v, _extreme_decays(w), u)]
+        s0 = torch.from_numpy(_state(2, 3, hd)).to(cuda) if with_s0 else None
+        want = ref.wkv6_ref(*x, s0=s0)
+        got = wkv6_cuda(*x, chunk=t, s0=None if s0 is None else s0.clone())
+        self._close(got, want)
+
+    @pytest.mark.parametrize("hd", [8, 16, 32])
+    @pytest.mark.parametrize("t", [CHUNK - 1, CHUNK + 1, 3 * CHUNK + 5])
+    def test_chunk_boundaries_bf16(self, cuda, hd, t):
+        """bf16 r, k, v below hd 64, in one launch and in three, from a
+        carried state."""
+        r, k, v, w, u = (torch.from_numpy(a).to(cuda)
+                         for a in _wkv_inputs(2, t, 3, hd, seed=hd + t))
+        r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
+        s0 = torch.from_numpy(_state(2, 3, hd)).to(cuda)
+        want = ref.wkv6_ref(r, k, v, w, u, s0=s0)
+        self._close(wkv6_cuda(r, k, v, w, u, chunk=t, s0=s0.clone()), want)
+
+    @pytest.mark.parametrize("t", [CHUNK, 3 * CHUNK + 5])
+    def test_s0_aliases_the_output_state(self, cuda, t):
+        """The final state is written over ``s0`` itself, in one launch and
+        in three."""
+        x = [torch.from_numpy(a).to(cuda) for a in _wkv_inputs(1, t, 2, 64, seed=t)]
+        s0 = torch.from_numpy(_state(1, 2, 64)).to(cuda)
+        want = ref.wkv6_ref(*x, s0=s0)
+        s = s0.clone()
+        o, st = wkv6_cuda(*x, chunk=t, s0=s)
+        assert st is s
+        self._close((o, s), want)
+
+    @pytest.mark.parametrize("t,kernels", [(1, 1), (CHUNK, 1), (CHUNK + 1, 3)])
+    def test_device_launches(self, cuda, t, kernels):
+        """A call of at most TIME_CHUNK steps is one kernel on the card (a
+        longer one three), counted from the profiler's device records."""
+        from torch.profiler import ProfilerActivity, profile
+        x = [torch.from_numpy(a).to(cuda) for a in _wkv_inputs(1, t, 40, 64, seed=t)]
+        s0 = torch.from_numpy(_state(1, 40, 64)).to(cuda)
+        wkv6_cuda(*x, chunk=t, s0=s0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wkv6_cuda(*x, chunk=t, s0=s0)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+        assert len(names) == kernels and all("wkv6" in n for n in names), names
+
+
+def test_sweep_needs_a_card(capsys):
+    """K4's time-chunk sweep times the kernel, so on the CPU it only says it
+    needs a card."""
+    from repro_torch.kernels.rwkv6 import sweep
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert sweep.main() == 1
+    assert "CUDA card" in capsys.readouterr().err
+
+
+def test_sweep_times_the_smokes_drain_prompts():
+    """The sweep's per-drain saving is taken at the prompt lengths that
+    ``chip_smoke.py`` serves."""
+    import importlib.util
+    import pathlib
+    from repro_torch.kernels.rwkv6 import sweep
+    from repro_torch.serving.engine import Request
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    prompts = [len(r.tokens) for r in smoke.requests(configs.get_config(smoke.RWKV), Request)]
+    assert tuple(prompts) == sweep.DRAIN_PROMPTS
