@@ -9,12 +9,20 @@ failure:
 
 1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build time, ``nvcc``'s register,
-   shared-memory and spill report (K4's three kernels and K5 among them),
-   K4's time chunk and K5's stage, and the card's name and power limit;
+   shared-memory and spill report (K4's three kernels and K5 among them,
+   every instance of K1 and K2), the tile, ring, occupancy and i chunk of
+   the K1 and K2 instances the wrappers launch and the host cost of one
+   tensor-map encode, K4's time chunk and K5's stage, and the card's name
+   and power limit;
 2. hold each kernel against its plain PyTorch version on the card:
    K1 and K2 at the shapes of the JAX package's kernel tests, at c = 0.25,
    and at the paper's 2400x600x600 f32 lattice (limits: 1e-6 for one
-   sweep, 1e-5 for two); K3 (flash attention) against ``mha_ref`` at the
+   sweep, 1e-5 for two, and 0 unequal elements); then bit for bit (0
+   unequal elements) at j and k extents one below, at and one above a tile
+   (and 4 either side in k) over one and two tiles, on lattices smaller
+   than a tile and with nk not a multiple of 4 (the 4-byte-copy instance),
+   at i extents either side of each kernel's i chunk, and at the runtime
+   sweep's first and last slab of the paper lattice; K3 (flash attention) against ``mha_ref`` at the
    shapes of ``tests/test_kernels.py`` (MQA, bidirectional, windowed,
    Tk > Tq offset) in f32 and its bf16 case, and at qwen2-0.5b's shapes in
    bf16, as the strided views the model passes: prefill 14 over 2 heads
@@ -63,7 +71,10 @@ failure:
    times and no other kernel, the tokens must be identical across
    policies, and each policy's ``ServeStats``, wall time, tokens per
    second, prefill ms per request and decode ms per token are printed; one
-   more drain under ``torch.profiler`` gives the card's idle share, its
+   more drain under ``torch.profiler`` (behind 64 one-element fills, since
+   a session can lose its first 32 device records; run again, at most
+   three times in all, if its trace still lacks a prefill marker) gives
+   the card's idle share, its
    top device functions and each of the path's kernels' device time per
    call in the drain, split into prefill and decode calls (a one-cycle
    device sleep before and after each prefill marks them in the trace).  Then the kernel path against the plain path: one
@@ -93,7 +104,12 @@ failure:
    conv history not carried) that must each exceed the limit;
 6. time each kernel, its plain version and the library's yardstick with
    CUDA events, beside its bound: K1 and K2 at the full lattice (yardstick
-   ``conv3d`` with the six-point cross) and the runtime sweep; K3 at the
+   ``conv3d`` with the six-point cross), one K1 slab launch of the runtime
+   sweep (10 rows, each call the next of 99 slabs so that none finds its
+   rows in L2; device time of 50 launches queued behind a device sleep,
+   and back to back as PR 16 timed it), and the
+   runtime sweep's wall time beside its device time and idle share under
+   ``torch.profiler``, each beside PR 16's number; K3 at the
    serving path's prefill and decode shapes (yardstick
    ``scaled_dot_product_attention``, which the port never calls); K4 at
    rwkv6-3b's prefill 1024 and 128 and decode (no PyTorch call computes
@@ -111,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import pathlib
 import subprocess
@@ -131,6 +148,17 @@ SWEEP_CASES = [((20, 20, 60), (10, 10)), ((8, 16, 128), (4, 8)),
 TWO_STEP_CASES = [((20, 20, 32), (5, 5)), ((12, 8, 16), (4, 4)),
                   ((10, 10, 600), (10, 10)), ((8, 8, 8), (2, 2))]
 K1_ATOL, K2_ATOL = 1e-6, 1e-5
+# K1 and K2 on either side of a tile: offsets of (nj, nk) from (tiles x TJ,
+# TK) at 1 and 2 tiles in j; nk 119 and 121 take the 4-byte-copy instance
+TILE_J_OFFSETS, TILE_K_OFFSETS = (-1, 0, 1), (-4, -1, 0, 1, 4)
+# lattices smaller than one tile, and nk not a multiple of 4
+SMALL_LATTICES = [(3, 2, 8), (2, 2, 4), (2, 3, 5), (6, 10, 30), (5, 9, 13), (3, 7, 1)]
+SLAB_ROWS = 10                # the runtime sweep's slab (di) at the paper lattice
+PROFILER_WARMUP = 64          # device records queued ahead of a profiled session
+# K1 and K2 before this design (PR 16 run 2, PERF.md §6, H100 80GB HBM3 at
+# 700 W): printed beside this run's numbers, kept out of the result lines
+JACOBI_BEFORE = {"jacobi_sweep_ms": 5.0611, "slab_us": 29.3,
+                 "jacobi_two_step_ms": 6.8504, "runtime_sweep_ms": (8.1639, 11.3333)}
 # tests/test_kernels.py's flash cases: b, hq, hkv, tq, tk, hd, causal, window
 FLASH_CASES = [(2, 4, 2, 128, 128, 32, True, 0), (1, 8, 1, 256, 256, 64, True, 0),
                (2, 4, 4, 128, 128, 16, False, 0), (1, 4, 2, 256, 256, 32, True, 96),
@@ -221,7 +249,10 @@ LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3}
 
 
 def fail(msg: str) -> None:
+    """Say why the run failed, on both streams (a caller that keeps only
+    the end of standard error still sees it), and exit with code 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -280,6 +311,25 @@ def device_ms(fn, iters: int = 20) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def queued_us(fn, n: int = 50) -> float:
+    """Device us of one call of ``fn`` where calls follow each other, as the
+    runtime sweep's slab launches do: ``n`` calls queued behind a device
+    sleep long enough for the host to enqueue them all, timed by events on
+    the device (back-to-back calls with the device idle would time the
+    host's enqueue)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -357,6 +407,29 @@ def device_spans(prof) -> list[tuple[str, int, int]]:
     return [(e.name(), e.start_ns(), e.end_ns())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def warm_profiler() -> None:
+    """Queue one-element fills ahead of the work a profiler session is to
+    trace, and wait for them.  On the H100 host a session could lose its
+    first 32 device records (the first 32 of a runtime sweep's 240 K1
+    launches; a drain's first prefill marker), so the traced work's own
+    records come after these; ``drop_warmup`` removes what is left of them."""
+    x = torch.zeros(1, device="cuda")
+    for _ in range(PROFILER_WARMUP):
+        x.fill_(1.0)
+    torch.cuda.synchronize()
+
+
+def drop_warmup(spans) -> list[tuple[str, int, int]]:
+    """The spans in start order, less the leading fills of ``warm_profiler``
+    (they all end before the traced work starts, which begins with another
+    kernel)."""
+    spans = sorted(spans, key=lambda sp: sp[1])
+    i = 0
+    while i < len(spans) and "FillFunctor" in spans[i][0]:
+        i += 1
+    return spans[i:]
 
 
 def busy_ms(spans) -> float:
@@ -438,6 +511,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import kernel as k3_kernel
     from repro_torch.kernels.flash_attention.kernel import flash_attention, split_plan
     from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.kernels.jacobi import kernel as k12_kernel
     from repro_torch.kernels.jacobi import ops, ref
     from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
     from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
@@ -529,6 +603,18 @@ def main() -> None:
             + (f" ({k3_lib.flash_attention_blocks_per_sm(rows, hd)} blocks per SM)"
                if dtype else "") for hd in k3_kernel.HEAD_DIMS))
 
+    for two_step, name in ((False, "jacobi_sweep (K1)"), (True, "jacobi_two_step (K2)")):
+        g = k12_kernel.geometry(two_step)
+        print(f"{name}: instance {g['variant']} of {k12_kernel.variants(two_step)}, tile "
+              f"{g['tj']} x {g['tk']}, {g['stages']} ring stages, {g['threads']} threads, "
+              f"{g['smem_bytes']} B dynamic shared memory, {g['blocks_per_sm']} blocks per "
+              f"SM ({g['blocks_per_sm_copy']} for the 4-byte-copy instance), i chunks of "
+              f"{g['chunk']} rows")
+    probe = torch.empty((SLAB_ROWS, *LATTICE[1:]), device=dev)
+    print(f"jacobi: one tensor-map encode takes {k12_kernel.encode_ns(probe) / 1e3:.3f} us "
+          f"of host time")
+    del probe
+
     print(f"wkv6: time chunks of {wkv_kernel.TIME_CHUNK} steps (a call up to one chunk "
           f"is one launch, a longer one three); rglru: {rglru_kernel.stage_steps()} "
           f"steps a shared-memory stage")
@@ -558,17 +644,57 @@ def main() -> None:
             errs["jacobi_two_step"] = max(errs["jacobi_two_step"], e)
             print(f"K2 {shape} c={c:.4f}: max_abs_err {e:.3e}")
 
+    # K1 and K2 bit for bit: unequal elements (limit 0) at every shape below
+    unequal = {"jacobi_sweep": 0, "jacobi_two_step": 0}
+
+    def k12_exact(name, got, want, label):
+        n = int((got != want).sum())
+        unequal[name] += n
+        if n:
+            print(f"{name} {label}: {n} unequal elements")
+
     f = torch.randn(LATTICE, generator=gen, device=dev)
     plain = ref.jacobi_sweep_ref(f)
-    e = max_err(jacobi_sweep_cuda(f), plain)
+    got = jacobi_sweep_cuda(f)
+    e = max_err(got, plain)
+    k12_exact("jacobi_sweep", got, plain, LATTICE)
     errs["jacobi_sweep"] = max(errs["jacobi_sweep"], e)
-    print(f"K1 {LATTICE}: max_abs_err {e:.3e}")
-    e = max_err(jacobi_two_step_cuda(f), ref.jacobi_sweep_ref(plain))
+    print(f"K1 {LATTICE}: max_abs_err {e:.3e}, {unequal['jacobi_sweep']} unequal elements")
+    want = ref.jacobi_sweep_ref(plain)
+    got = jacobi_two_step_cuda(f)
+    e = max_err(got, want)
+    k12_exact("jacobi_two_step", got, want, LATTICE)
     errs["jacobi_two_step"] = max(errs["jacobi_two_step"], e)
-    print(f"K2 {LATTICE}: max_abs_err {e:.3e}")
+    print(f"K2 {LATTICE}: max_abs_err {e:.3e}, {unequal['jacobi_two_step']} unequal elements")
+    del got, want
+    # the runtime sweep's first and last slab: the tensor map's zero fill is
+    # the missing halo plane
+    for rows in ((0, SLAB_ROWS), (LATTICE[0] - SLAB_ROWS, LATTICE[0])):
+        k12_exact("jacobi_sweep",
+                  jacobi_sweep_cuda(f, di=SLAB_ROWS, dj=LATTICE[1], rows=rows),
+                  plain[rows[0]:rows[1]], f"rows {rows}")
+    print(f"K1 slabs at both lattice edges: {unequal['jacobi_sweep']} unequal elements so far")
+    for two_step, name, kern, plain_fn in (
+            (False, "jacobi_sweep", jacobi_sweep_cuda, ref.jacobi_sweep_ref),
+            (True, "jacobi_two_step", jacobi_two_step_cuda, ref.jacobi_two_step_ref)):
+        g = k12_kernel.geometry(two_step)
+        shapes = [(7, tiles * g["tj"] + dj, g["tk"] + dk) for tiles in (1, 2)
+                  for dj in TILE_J_OFFSETS for dk in TILE_K_OFFSETS]
+        shapes += SMALL_LATTICES
+        shapes += [(ni, 9, 124) for ni in (g["chunk"] - 1, g["chunk"], g["chunk"] + 1,
+                                           2 * g["chunk"] + 1)]
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device=dev)
+            # di, dj: the whole lattice (the wrappers check divisibility only)
+            k12_exact(name, kern(x, 0.25, shape[0], shape[1]), plain_fn(x, 0.25), shape)
+        print(f"{name}: {len(shapes)} shapes around its {g['tj']} x {g['tk']} tile "
+              f"and {g['chunk']}-row i chunk ({sum(1 for sh in shapes if sh[2] % 4)} "
+              f"with nk not a multiple of 4, through the 4-byte copies): "
+              f"{unequal[name]} unequal elements in all")
     torch.cuda.synchronize()
-    if errs["jacobi_sweep"] > K1_ATOL or errs["jacobi_two_step"] > K2_ATOL:
-        fail(f"kernel disagrees with its plain version: {errs}")
+    if errs["jacobi_sweep"] > K1_ATOL or errs["jacobi_two_step"] > K2_ATOL \
+            or any(unequal.values()):
+        fail(f"kernel disagrees with its plain version: {errs}, unequal {unequal}")
 
     print(f"K3 limits, per element against mha_ref's value r: |err| <= "
           f"{K3_F32_TOL['atol']} in f32 (the online softmax reassociates the "
@@ -945,7 +1071,6 @@ def main() -> None:
               f"{list(outs['locality'][0])}")
 
         from torch.profiler import ProfilerActivity, profile
-        engine = new_engine("locality")
         # a device sleep of one cycle before and after each prefill marks the
         # prefill calls' records in the trace
         prefills = []
@@ -957,27 +1082,47 @@ def main() -> None:
             torch.cuda._sleep(1)
             return out
 
-        for rep in engine.replicas:
-            rep._prefill = marked_prefill
-        torch.cuda.synchronize()
-        zero_counts()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.run_until_drained()
+        # the prefill/decode split below rests on two markers per prefill and
+        # on one prefill call per layer and request of each kernel: a session
+        # whose trace lacks any record of these is run again, at most twice
+        for attempt in range(3):
+            engine = new_engine("locality")
+            for rep in engine.replicas:
+                rep._prefill = marked_prefill
+            prefills.clear()
             torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        prof_launches = counts()
-        t0 = time.perf_counter()
-        spans = device_spans(prof)
-        markers = [sp for sp in spans if sp[0] == marker_name]
-        spans = [sp for sp in spans if sp[0] != marker_name]
-        busy = busy_ms(spans)
-        print(f"profiled drain: {len(prefills)} prefills, {len(markers)} prefill markers "
-              f"({marker_name})")
-        # the prefill/decode split below rests on two markers per prefill
-        if len(prefills) != N_REQUESTS or len(markers) != 2 * len(prefills):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                warm_profiler()
+                zero_counts()
+                t0 = time.perf_counter()
+                engine.run_until_drained()
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t0) * 1e3
+            prof_launches = counts()
+            t0 = time.perf_counter()
+            spans = drop_warmup(device_spans(prof))
+            markers = [sp for sp in spans if sp[0] == marker_name]
+            spans = [sp for sp in spans if sp[0] != marker_name]
+            busy = busy_ms(spans)
+            in_drain = {}
+            for name in want:
+                calls = kernel_calls(spans, markers, name)
+                in_drain[name] = call_summary([us for _, us in calls]) | {
+                    kind: call_summary([us for pre, us in calls if pre == (kind == "prefill")])
+                    for kind in ("prefill", "decode")}
+            prefill_calls = {name: m["prefill"]["calls"] for name, m in in_drain.items()}
+            print(f"profiled drain, attempt {attempt + 1}: {len(prefills)} prefills, "
+                  f"{len(markers)} prefill markers ({marker_name}), prefill calls "
+                  f"{prefill_calls}, reversed records "
+                  f"{sum(1 for _, st, e in spans + markers if e < st)}")
+            if len(prefills) == N_REQUESTS and len(markers) == 2 * len(prefills) and all(
+                    n == want[name] // (1 + MAX_NEW) for name, n in prefill_calls.items()):
+                break
+        else:
+            want_prefill = {name: n // (1 + MAX_NEW) for name, n in want.items()}
             fail(f"{arch} profiled drain: {len(prefills)} prefills, {len(markers)} "
-                 f"markers, want {N_REQUESTS} and two each")
+                 f"markers, prefill calls {prefill_calls}; want {N_REQUESTS}, two "
+                 f"markers each and {want_prefill}")
         print(f"profiler: {len(spans)} device records read in "
               f"{time.perf_counter() - t0:.1f} s")
         if busy <= 0 or not path_ok(prof_launches, want):
@@ -987,16 +1132,7 @@ def main() -> None:
               f"busy {busy:.4f} ms, idle share {idle_share:.4f}")
         print("device time by function over the profiled drain:")
         print("\n".join(top_kernels(spans)))
-        in_drain = {}
         for name in want:
-            calls = kernel_calls(spans, markers, name)
-            in_drain[name] = call_summary([us for _, us in calls]) | {
-                kind: call_summary([us for pre, us in calls if pre == (kind == "prefill")])
-                for kind in ("prefill", "decode")}
-            # one prefill call per layer and request
-            if in_drain[name]["prefill"]["calls"] != want[name] // (1 + MAX_NEW):
-                fail(f"{arch} profiled drain, {name}: {in_drain[name]['prefill']['calls']} "
-                     f"prefill calls, want {want[name] // (1 + MAX_NEW)}")
             print(f"{arch} profiled drain, {name}: " + "; ".join(
                 f"{kind} {m['calls']} calls, {m['total_ms']:.3f} ms, {m['mean_us']:.3f} us per call"
                 for kind, m in (("all", in_drain[name]), ("prefill", in_drain[name]["prefill"]),
@@ -1009,10 +1145,18 @@ def main() -> None:
         return model, params, result
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-    marker_name = device_spans(prof)[0][0]      # the prefill markers' kernel
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warm_profiler()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        names = [name for name, _, _ in drop_warmup(device_spans(prof))]
+        if names:
+            break
+    else:
+        fail("the profiler recorded no device sleep in 3 sessions")
+    marker_name = names[-1]                     # the prefill markers' kernel
+    print(f"profiler: prefill markers are {marker_name}")
 
     def teacher_forced(arch, cfg, model, params, faults=None):
         """The kernel path against the plain path (``use_kernel=False``) on
@@ -1176,24 +1320,84 @@ def main() -> None:
                       lambda: conv(conv(x, w, padding=1), w, padding=1), 3)}
     print(f"library conv3d (cudnn.allow_tf32=False): max_abs_err vs plain {e_conv:.3e}")
 
+    # one slab launch of the runtime sweep: 10 rows straight from the
+    # lattice into their place.  Each timed call takes the next of slabs 1-
+    # 99 (rows 10-1000), so its 17 MB of input do not sit in the 50 MB L2
+    # from the call before, as they do not in the runtime sweep.  Bound: the
+    # rows read once and written once (8 B a site); yardstick: conv3d over
+    # the rows and their halo planes
+    slab_sites = SLAB_ROWS * LATTICE[1] * LATTICE[2]
+    slab_bound = bound(8 * slab_sites, 6 * slab_sites, F32_FLOPS_PER_S)
+    starts = itertools.cycle(range(SLAB_ROWS, 100 * SLAB_ROWS, SLAB_ROWS))
+
+    def halo_of(r):
+        return f[r - 1:r + SLAB_ROWS + 1]
+
+    def slab_call():
+        r = next(starts)
+        jacobi_sweep_cuda(f, di=SLAB_ROWS, dj=LATTICE[1], out=buf[r:r + SLAB_ROWS],
+                          rows=(r, r + SLAB_ROWS))
+
+    def slab_conv(r=None):
+        h = halo_of(next(starts) if r is None else r)
+        return conv(h.view(1, 1, *h.shape), w, padding=(0, 1, 1))
+
+    e_slab = max_err(slab_conv(SLAB_ROWS)[0, 0],
+                     ref.jacobi_sweep_ref(halo_of(SLAB_ROWS))[1:-1])
+    slab = {"rows": SLAB_ROWS, "ms": queued_us(slab_call) / 1e3,
+            "ms_back_to_back": time_ms(slab_call, 50),
+            "plain_ms": queued_us(
+                lambda: ref.jacobi_sweep_ref(halo_of(next(starts)))[1:-1], 20) / 1e3,
+            "bound_ms": slab_bound[0], "bound_by": slab_bound[1],
+            "library_ms": queued_us(slab_conv) / 1e3}
+
     # the runtime sweep (host-driven, 240 launches): CUDA events around the
-    # whole drain, and one padded-slab launch of K1 for the device share
+    # whole drain, then one drain under the profiler for K1's device time
+    # and the card's idle share
     sweep_ms = time_ms(lambda: run_runtime_sweep(
         f, di=di, num_domains=domains, workers_per_domain=wpd), 3, warmup=1)
-    slab = f[di - 1:2 * di + 1]
-    slab_ms = time_ms(lambda: jacobi_sweep_cuda(
-        slab, di=di + 2, dj=LATTICE[1], out=buf[di:2 * di], rows=(1, di + 1)), 50)
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warm_profiler()
+            t0 = time.perf_counter()
+            run_runtime_sweep(f, di=di, num_domains=domains, workers_per_domain=wpd)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = drop_warmup(device_spans(prof))
+        k1_spans = [(e - st) / 1e6 for name, st, e in spans if "jacobi_sweep_kernel" in name]
+        print(f"profiled runtime sweep, attempt {attempt + 1}: {len(k1_spans)} of "
+              f"{nslabs} K1 launches recorded")
+        if len(k1_spans) == nslabs:
+            break
+    else:
+        fail(f"profiled runtime sweep: {len(k1_spans)} K1 records, want {nslabs}")
+    busy = busy_ms(spans)
+    runtime = {"wall_ms": sweep_ms, "profiled_wall_ms": prof_wall_ms,
+               "device_ms": sum(k1_spans), "device_busy_ms": busy,
+               "idle_share": 1 - busy / prof_wall_ms}
 
+    before = JACOBI_BEFORE
     for name in ("jacobi_sweep", "jacobi_two_step"):
         gbs = io_bytes / (ms[name] * 1e-3) / 1e9
-        print(f"{name}: {ms[name]:.4f} ms, {gbs:.1f} GB/s, bound "
+        print(f"{name} {LATTICE}: {ms[name]:.4f} ms (PR 16: {before[name + '_ms']} ms, "
+              f"{before[name + '_ms'] / ms[name]:.2f}x), {gbs:.1f} GB/s, bound "
               f"{jb[name][0]:.4f} ms ({jb[name][0] / ms[name]:.1%} of bound), "
               f"plain {plain_ms[name]:.4f} ms, library {library_ms[name]:.4f} ms")
-    print(f"run_runtime_sweep: {sweep_ms:.4f} ms, "
-          f"{io_bytes / (sweep_ms * 1e-3) / 1e9:.1f} GB/s, bound "
-          f"{jb['jacobi_sweep'][0]:.4f} ms "
-          f"({jb['jacobi_sweep'][0] / sweep_ms:.1%} of bound); one slab launch "
-          f"{slab_ms:.4f} ms x {nslabs} = {slab_ms * nslabs:.4f} ms of device time")
+    print(f"jacobi_sweep slab of {SLAB_ROWS} rows of {LATTICE}: {slab['ms'] * 1e3:.2f} us of "
+          f"device time a launch (queued), {slab['ms_back_to_back'] * 1e3:.2f} us back to "
+          f"back (PR 16: {before['slab_us']} us, timed back to back), bound "
+          f"{slab['bound_ms'] * 1e3:.2f} us ({slab['bound_ms'] / slab['ms']:.1%} of bound), "
+          f"plain {slab['plain_ms'] * 1e3:.2f} us, library conv3d "
+          f"{slab['library_ms'] * 1e3:.2f} us (max_abs_err vs plain {e_slab:.3e})")
+    print(f"run_runtime_sweep: wall {sweep_ms:.4f} ms (PR 16: {before['runtime_sweep_ms'][0]}"
+          f"; {before['runtime_sweep_ms'][1]} ms), bound {jb['jacobi_sweep'][0]:.4f} ms "
+          f"({jb['jacobi_sweep'][0] / sweep_ms:.1%} of bound); profiled: wall "
+          f"{prof_wall_ms:.4f} ms, K1 device time {runtime['device_ms']:.4f} ms in "
+          f"{len(k1_spans)} launches ({runtime['device_ms'] / nslabs * 1e3:.2f} us each; "
+          f"PR 16: 7.03 ms), device busy {busy:.4f} ms, idle share "
+          f"{runtime['idle_share']:.4f}")
     del f, buf, x
 
     # K3 at the serving path's shapes (yardstick: SDPA, never called by the port)
@@ -1295,7 +1499,10 @@ def main() -> None:
             "replaces": replaces, "path": path,
             "launches": path_launches[name], "max_abs_err": errs[name],
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": jb[name][0],
-            "bound_by": jb[name][1], "library_ms": library_ms[name]})
+            "bound_by": jb[name][1], "library_ms": library_ms[name],
+            "unequal_elements": unequal[name]})
+    # K1's main path launches it on slabs: the slab shape and the whole drain
+    kernels[0].update(slab=slab, runtime_sweep=runtime)
     for name, source, replaces, arch, worst, shapes, headline in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:26", QWEN, k3_worst, k3,

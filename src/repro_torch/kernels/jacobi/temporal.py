@@ -4,10 +4,12 @@ outlook, temporal blocking), a hand-written CUDA kernel for Hopper.
 Replaces the Pallas kernel ``_temporal_kernel`` of
 ``repro/kernels/jacobi/temporal.py`` (reached through
 ``jacobi_two_step_pallas``).  The kernel is ``jacobi_two_step_kernel`` in
-``repro_torch/csrc/jacobi.cu``: each block marches along i with a 2-deep
-halo in i, j and k, computes step 1 on its tile plus a 1-ring, forces the
-step-1 values that lie outside the lattice to zero (as the TPU kernel
-re-zeroes its ring), and writes step 2.  Its bound is one sweep's bytes,
+``repro_torch/csrc/jacobi.cu``: each block marches along i over a chunk of
+rows, with f arriving by TMA (2-deep halo in j and k, zeros outside the
+lattice) in a ring of planes; it computes step 1 on its tile plus a 1-ring
+into a second ring of three step-1 planes, forces the step-1 values that
+lie outside the lattice to zero (as the TPU kernel re-zeroes its ring),
+and writes step 2 one plane behind.  Its bound is one sweep's bytes,
 8 B/site, for two sweeps of work.
 
 ``di``/``dj`` keep the reference's contract (``ValueError`` on an
@@ -16,23 +18,11 @@ tiling, which is fixed by the kernel.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from .. import _build
-from .kernel import _shares_storage, check_lattice
+from .kernel import _lib, _shares_storage, check_lattice
 from .ref import jacobi_two_step_ref
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("jacobi")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.jacobi_two_step_launch.argtypes = [p, p, i, i, i, ctypes.c_float, p]
-    lib.jacobi_two_step_launch.restype = i
-    return lib
 
 
 def jacobi_two_step_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,

@@ -5,8 +5,9 @@
 into slabs of ``di`` rows, each slab update one ``runtime.Task`` homed on a
 locality domain (contiguous slabs per domain, the paper's parallel first
 touch), drained by the port's copy of the locality-queue ``Executor``.
-Each slab task launches the Hopper sweep kernel (K1) on its halo-padded
-slab.
+Each slab task launches the Hopper sweep kernel (K1) once, on the whole
+lattice with the slab's row range: the kernel reads the halo planes from
+the lattice and takes zeros past its edges.
 
 Not ported yet (ROADMAP): the ``spec=`` path, which waits for the port of
 ``repro.spec``, and the shard_map sweeps ``make_contiguous_sweep`` /
@@ -83,7 +84,7 @@ def run_runtime_sweep(f, c: float = 1.0 / 6.0, di: int = 10,
     """
     dev = resolve_device(device)
     f = torch.as_tensor(f, device=dev).contiguous()
-    ni, nj, nk = f.shape
+    ni, nj, _ = f.shape
     if ni % di != 0:
         raise ValueError(f"i extent {ni} not divisible by slab size {di}")
     if spec is not None:
@@ -93,22 +94,13 @@ def run_runtime_sweep(f, c: float = 1.0 / 6.0, di: int = 10,
             "pass the scheduling kwargs instead")
     nslabs = ni // di
     out = torch.empty_like(f)
-    zero_plane = f.new_zeros((1, nj, nk))
 
     def update_slab(task, worker):
+        # Rows i0 .. i0 + di of the whole-lattice sweep, straight into
+        # ``out``: the halo planes are f's own rows, or zeros past the
+        # lattice's edges, so the rows equal the whole-lattice sweep.
         i0 = task.payload * di
-        if 0 < i0 and i0 + di < ni:
-            padded = f[i0 - 1:i0 + di + 1]          # contiguous view, no copy
-        else:                                       # lattice edge: zero halo
-            up = f[i0 - 1:i0] if i0 > 0 else zero_plane
-            down = f[i0 + di:i0 + di + 1] if i0 + di < ni else zero_plane
-            padded = torch.cat([up, f[i0:i0 + di], down])
-        # The padded slab has di+2 rows, which di need not divide: sweep it
-        # as one (di+2, nj) block and keep rows 1..di straight into ``out``.
-        # Those rows saw the true halo planes, so they equal the
-        # whole-lattice sweep; the row range spares a crop copy.
-        jacobi_sweep(padded, c, di=di + 2, dj=nj,
-                     out=out[i0:i0 + di], rows=(1, di + 1))
+        jacobi_sweep(f, c, di=di, dj=nj, out=out[i0:i0 + di], rows=(i0, i0 + di))
 
     ex = Executor(num_domains, [d for d in range(num_domains)
                                 for _ in range(workers_per_domain)],

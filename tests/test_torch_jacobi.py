@@ -24,7 +24,7 @@ from repro.kernels.jacobi import ref as jax_ref
 from repro.kernels.jacobi.kernel import jacobi_sweep_pallas
 from repro.kernels.jacobi.temporal import jacobi_two_step_pallas
 from repro.stencil import jacobi as jax_stencil
-from repro_torch.kernels.jacobi import ops, ref
+from repro_torch.kernels.jacobi import kernel, ops, ref
 from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
 from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
 from repro_torch.stencil import jacobi as stencil
@@ -138,6 +138,13 @@ class TestContract:
         with pytest.raises(err):
             jacobi_two_step_cuda(bad, di=2, dj=2)
 
+    def test_instance_launch_takes_only_card_tensors(self):
+        """``kernel.launch`` (the sweep's and the tests' way to every compiled
+        instance) has no plain version: CPU tensors raise before any build."""
+        f = torch.zeros(4, 4, 8)
+        with pytest.raises(ValueError):
+            kernel.launch(False, 0, 10, f, torch.zeros(4, 4, 8))
+
     def test_row_range_writes_in_place(self):
         f = torch.from_numpy(_lattice((12, 6, 8), seed=6))
         out = torch.full((10, 6, 8), float("nan"))
@@ -145,6 +152,24 @@ class TestContract:
         assert got is out
         want = np.asarray(jax_ref.jacobi_sweep_ref(jnp.asarray(f.numpy()), 0.25))
         np.testing.assert_allclose(out.numpy(), want[1:11], rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("rows", [(0, 3), (2, 5), (9, 12), (0, 12), (4, 4),
+                                      (11, 12)])
+    def test_row_range_sweeps_only_its_rows(self, rows, monkeypatch):
+        """The plain row range equals the whole-lattice sweep's rows bit for
+        bit, and sweeps no more than the rows and their two halo planes."""
+        f = torch.from_numpy(_lattice((12, 5, 7), seed=10))
+        swept = []
+
+        def counted(x, c):
+            swept.append(x.shape[0])
+            return ref.jacobi_sweep_ref(x, c)
+
+        monkeypatch.setattr(kernel, "jacobi_sweep_ref", counted)
+        out = torch.full((rows[1] - rows[0], 5, 7), float("nan"))
+        jacobi_sweep_cuda(f, 0.25, di=12, dj=5, out=out, rows=rows)
+        assert torch.equal(out, ref.jacobi_sweep_ref(f, 0.25)[rows[0]:rows[1]])
+        assert swept == [min(rows[1] + 1, 12) - max(rows[0] - 1, 0)]
 
     @pytest.mark.parametrize("rows,shape", [((0, 13), (13, 6, 8)),
                                             ((2, 5), (4, 6, 8))])
@@ -219,6 +244,102 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert jacobi_sweep_cuda.launches - before == 8 == stats.executed
         torch.testing.assert_close(out, ref.jacobi_sweep_ref(f), rtol=0, atol=1e-6)
+
+    # K1 and K2 bit for bit against the plain sweep at j and k extents one
+    # below, at and one above a tile (and 4 either side of it in k: TMA with
+    # a ragged tile; 119 and 121 take the 4-byte copies), over 2 tiles in j
+    @pytest.mark.parametrize("two_step", [False, True])
+    @pytest.mark.parametrize("dk", [-4, -1, 0, 1, 4])
+    @pytest.mark.parametrize("dj", [-1, 0, 1])
+    def test_bit_exact_at_tile_edges(self, cuda, two_step, dj, dk):
+        g = kernel.geometry(two_step)
+        for tiles_j in (1, 2):
+            f = torch.from_numpy(_lattice((7, tiles_j * g["tj"] + dj, g["tk"] + dk),
+                                          seed=11)).to(cuda)
+            self._check_bit_exact(f, two_step)
+
+    @staticmethod
+    def _check_bit_exact(f, two_step, c=1 / 6, rows=None):
+        block = f.shape[:2]         # divides the lattice (the contract's check)
+        if two_step:
+            got = jacobi_two_step_cuda(f, c, *block)
+            want = ref.jacobi_two_step_ref(f, c)
+        elif rows is None:
+            got = jacobi_sweep_cuda(f, c, *block)
+            want = ref.jacobi_sweep_ref(f, c)
+        else:
+            got = jacobi_sweep_cuda(f, c, *block, rows=rows)
+            want = ref.jacobi_sweep_ref(f, c)[rows[0]:rows[1]]
+        torch.cuda.synchronize()
+        unequal = int((got != want).sum())
+        assert unequal == 0, f"{unequal} unequal elements at {tuple(f.shape)}"
+
+    @pytest.mark.parametrize("two_step", [False, True])
+    @pytest.mark.parametrize("shape", [(3, 2, 8), (2, 2, 4), (2, 3, 5), (4, 4, 16),
+                                       (6, 10, 30), (5, 9, 13), (3, 7, 1)])
+    def test_bit_exact_below_one_tile_and_ragged_k(self, cuda, two_step, shape):
+        """Lattices smaller than one tile; nk not a multiple of 4 (the
+        4-byte-copy instance)."""
+        f = torch.from_numpy(_lattice(shape, seed=12)).to(cuda)
+        self._check_bit_exact(f, two_step, c=0.25)
+
+    @pytest.mark.parametrize("nk", [120, 30])
+    def test_row_ranges_at_both_lattice_edges(self, cuda, nk):
+        """The main path's slab launches: rows at the first and last slab
+        (zero halo from the tensor map's fill) and inside, written in place."""
+        ni, di = 40, 10
+        f = torch.from_numpy(_lattice((ni, 9, nk), seed=13)).to(cuda)
+        for rows in ((0, di), (ni - di, ni), (di, 2 * di), (0, ni), (ni - 1, ni)):
+            self._check_bit_exact(f, False, rows=rows)
+            buf = torch.full((ni, 9, nk), float("nan"), device=cuda)
+            jacobi_sweep_cuda(f, di=1, dj=1, out=buf[rows[0]:rows[1]], rows=rows)
+            want = ref.jacobi_sweep_ref(f)[rows[0]:rows[1]]
+            assert torch.equal(buf[rows[0]:rows[1]], want)
+            assert bool(buf[:rows[0]].isnan().all()) and bool(buf[rows[1]:].isnan().all())
+
+    @pytest.mark.parametrize("two_step", [False, True])
+    @pytest.mark.parametrize("extra", [-1, 0, 1, "2c+1"])
+    def test_bit_exact_across_the_i_chunk(self, cuda, two_step, extra):
+        """i extents either side of the i chunk the wrappers launch with."""
+        chunk = kernel.geometry(two_step)["chunk"]
+        ni = 2 * chunk + 1 if extra == "2c+1" else chunk + extra
+        f = torch.from_numpy(_lattice((ni, 9, 124), seed=14)).to(cuda)
+        self._check_bit_exact(f, two_step)
+        if not two_step:
+            self._check_bit_exact(f, False, rows=(1, ni - 1))
+
+    @pytest.mark.parametrize("two_step", [False, True])
+    def test_every_instance_and_route(self, cuda, two_step):
+        """Every compiled (tile, ring depth) instance, through TMA and through
+        the 4-byte copies, at small and large i chunks."""
+        f = torch.from_numpy(_lattice((37, 21, 244), seed=15)).to(cuda)
+        want = (ref.jacobi_two_step_ref if two_step else ref.jacobi_sweep_ref)(f)
+        before = (jacobi_sweep_cuda.launches, jacobi_two_step_cuda.launches)
+        for v in range(kernel.variants(two_step)):
+            for chunk in (5, 16, 37):
+                for tma in (True, False):
+                    out = torch.full_like(f, float("nan"))
+                    kernel.launch(two_step, v, chunk, f, out, tma=tma)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, want), (v, chunk, tma)
+        assert (jacobi_sweep_cuda.launches, jacobi_two_step_cuda.launches) == before
+
+    def test_unaligned_base_takes_the_copy_route(self, cuda):
+        """A lattice whose data starts off 16 bytes cannot use TMA: the same
+        kernel's 4-byte-copy instance sweeps it, bit for bit."""
+        base = torch.from_numpy(_lattice((6 * 8 * 16 + 1,), seed=16)).to(cuda)
+        f = base[1:].view(6, 8, 16)
+        assert f.data_ptr() % 16
+        self._check_bit_exact(f, False)
+        self._check_bit_exact(f, True)
+
+    def test_geometry_and_encode(self, cuda):
+        for two_step in (False, True):
+            g = kernel.geometry(two_step)
+            assert g["tk"] % 4 == 0 and g["blocks_per_sm"] >= 1
+            assert g["blocks_per_sm_copy"] >= 1 and g["chunk"] >= 1
+        f = torch.zeros((12, 10, 120), device=cuda)
+        assert kernel.encode_ns(f, reps=10) > 0
 
     def test_cuda_tensor_never_takes_plain_path(self, cuda):
         f = torch.zeros((9, 8, 16), device=cuda)

@@ -63,6 +63,24 @@ class TestRuntimeSweepParity:
         assert dataclasses.asdict(s_port) == dataclasses.asdict(s_ref)
         assert _events(g_port.ex) == _events(g_ref.ex)
 
+    @pytest.mark.parametrize("shape,di,domains", [((10, 6, 8), 5, 2),
+                                                  ((15, 4, 6), 5, 3),
+                                                  ((12, 5, 7), 3, 4),
+                                                  ((8, 3, 5), 1, 4)])
+    def test_edge_slabs_match_reference(self, shape, di, domains):
+        """Each slab task sweeps its rows of the whole lattice: the first and
+        last slabs take their missing halo plane as zeros, as the
+        reference's zero-padded slabs do."""
+        f = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+        g_ref, g_port = _Grab(), _Grab()
+        kw = dict(c=0.25, di=di, num_domains=domains, workers_per_domain=2)
+        want, s_ref = ref_sweep(f, trace=g_ref, **kw)
+        got, s_port = port_sweep(f, trace=g_port, device="cpu", **kw)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+        assert dataclasses.asdict(s_port) == dataclasses.asdict(s_ref)
+        assert _events(g_port.ex) == _events(g_ref.ex)
+        assert s_port.executed == shape[0] // di
+
     def test_single_slab_has_two_zero_halos(self):
         f = np.random.default_rng(2).standard_normal((5, 4, 6)).astype(np.float32)
         want, _ = ref_sweep(f, di=5, num_domains=2)
