@@ -58,9 +58,20 @@ failure:
    prefill 1024, both split);
 3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
    (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
-   sweep, with the launch counts zeroed before and read after; then
-   ``jacobi_iterate`` (K2 for pairs of sweeps, K1 for the odd one) the same
-   way;
+   sweep, with the launch counts zeroed before and read after;
+3b. the same sweep built from ``spec.named("paper_cyclic")`` (4 domains)
+   and recorded by the port's ``TraceRecorder``: 240 K1 launches and a
+   lattice equal to the kwargs path's bit for bit; the trace is written as
+   JSONL, read back, replayed from its header alone (the recorded stats
+   and event stream) and passed by the port's ``check_trace``;
+3c. the SPMD sweeps, ``make_contiguous_sweep`` and ``make_scattered_sweep``
+   (4 slabs), as the one rank of an NCCL group on ``tcp://localhost``:
+   each equal to the whole-lattice K1 sweep with 0 unequal elements, at 1
+   and 4 K1 launches, with the bytes the rank hands to
+   ``torch.distributed`` counted; each sweep timed beside the whole-lattice
+   K1, its byte bound and the padded copy; the group is destroyed after;
+   then ``jacobi_iterate`` (K2 for pairs of sweeps, K1 for the odd one)
+   as in phase 3;
 4. the serving path on full-width qwen2-0.5b in bf16: ``ServingEngine``
    (random weights from ``torch.Generator`` seed 0), 12 requests of
    128-1024 prompt tokens and 32 new tokens each (numpy seed 0, about 2/3
@@ -77,7 +88,11 @@ failure:
    the card's idle share, its
    top device functions and each of the path's kernels' device time per
    call in the drain, split into prefill and decode calls (a one-cycle
-   device sleep before and after each prefill marks them in the trace).  Then the kernel path against the plain path: one
+   device sleep before and after each prefill marks them in the trace).
+   Two more drains (4b): with ``control=ControlLoop.full(batch_cap=4)``,
+   and built from ``spec.named("controlled_serving")`` with 3 domains, 3
+   replicas and ``max_seq`` 2048; each must launch K3 9504 times and give
+   the ``locality`` drain's tokens.  Then the kernel path against the plain path: one
    request, teacher-forced with the tokens the plain path
    (``use_kernel=False``) chose, through both; the prefill's and every
    decode step's logits must agree within the bf16 limit printed beside
@@ -109,7 +124,8 @@ failure:
    rows in L2; device time of 50 launches queued behind a device sleep,
    and back to back as PR 16 timed it), and the
    runtime sweep's wall time beside its device time and idle share under
-   ``torch.profiler``, each beside PR 16's number; K3 at the
+   ``torch.profiler``, each beside PR 16's number, and the same for the
+   spec-built sweep of phase 3b; K3 at the
    serving path's prefill and decode shapes (yardstick
    ``scaled_dot_product_attention``, which the port never calls); K4 at
    rwkv6-3b's prefill 1024 and 128 and decode (no PyTorch call computes
@@ -126,12 +142,15 @@ the port's sources are not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
 import itertools
 import json
 import pathlib
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -154,6 +173,8 @@ TILE_J_OFFSETS, TILE_K_OFFSETS = (-1, 0, 1), (-4, -1, 0, 1, 4)
 # lattices smaller than one tile, and nk not a multiple of 4
 SMALL_LATTICES = [(3, 2, 8), (2, 2, 4), (2, 3, 5), (6, 10, 30), (5, 9, 13), (3, 7, 1)]
 SLAB_ROWS = 10                # the runtime sweep's slab (di) at the paper lattice
+SPEC_SWEEP = "paper_cyclic"   # the spec-built runtime sweep's policy: 4 domains
+SPMD_BLOCKS_PER_DEV = 4       # the scattered SPMD sweep's slabs per rank
 PROFILER_WARMUP = 64          # device records queued ahead of a profiled session
 # K1 and K2 before this design (PR 16 run 2, PERF.md §6, H100 80GB HBM3 at
 # 700 W): printed beside this run's numbers, kept out of the result lines
@@ -490,6 +511,193 @@ def requests(cfg, request_cls) -> list:
         home = int(rng.integers(0, REPLICAS)) if rng.random() < 0.67 else -1
         reqs.append(request_cls(uid=i, tokens=toks, max_new=MAX_NEW, home_replica=home))
     return reqs
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for the process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def events_of(events) -> list[tuple]:
+    return [(e.step, e.kind, e.worker, e.domain, e.task_uid) for e in events]
+
+
+def spec_sweep(f, out_kwargs, di, counts, zero_counts) -> dict:
+    """The spec-built runtime sweep (``spec.named(SPEC_SWEEP)``) recorded by
+    the port's ``TraceRecorder``: one K1 launch per slab, a lattice equal to
+    the kwargs path's ``out_kwargs`` bit for bit; the trace written as JSONL,
+    read back, replayed from its header's spec alone with the recorded
+    stats and event stream, and passed by the port's model checker."""
+    from repro_torch import check, spec, trace
+    from repro_torch.stencil.jacobi import run_runtime_sweep
+
+    nslabs = f.shape[0] // di
+    rec = trace.TraceRecorder()
+    torch.cuda.synchronize()
+    zero_counts()
+    out, stats = run_runtime_sweep(f, di=di, spec=spec.named(SPEC_SWEEP), trace=rec,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    launched = counts()
+    unequal = int((out != out_kwargs).sum())
+    del out
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "spec_sweep.trace.jsonl"
+        trace.TraceWriter(path).write(rec.finish())
+        lines = path.read_text().count("\n")
+        back = trace.TraceReader(path).read()
+    replayed = trace.replay(back)
+    same_events = events_of(replayed.executor.events) == events_of(back.events)
+    verdict = check.check_trace(back, path="spec_sweep.trace.jsonl")
+    print(f"run_runtime_sweep(spec={SPEC_SWEEP!r}, trace=TraceRecorder()): launches "
+          f"{launched}, {unequal} elements unequal to the kwargs path; {stats}")
+    print(f"spec-built sweep trace: {lines} JSONL lines, {len(back.events)} events; "
+          f"replayed from its header: stats match {replayed.matches_recorded}, event "
+          f"stream equal {same_events}; check_trace ok {verdict.ok} "
+          f"({len(verdict.violations)} violations)")
+    if unequal or stats.executed != nslabs or any(
+            n != (nslabs if name == "jacobi_sweep" else 0) for name, n in launched.items()):
+        fail(f"spec-built sweep: {unequal} unequal elements, executed {stats.executed}, "
+             f"launches {launched}, want {nslabs} K1 launches and nothing else")
+    if not (replayed.matches_recorded and same_events and verdict.ok):
+        fail(f"spec-built sweep trace: replay mismatches {replayed.mismatches()}, "
+             f"events equal {same_events}, violations {verdict.violations}")
+    return {"spec": SPEC_SWEEP, "launches": launched["jacobi_sweep"],
+            "unequal_elements": unequal, "trace_lines": lines,
+            "replay_matches": replayed.matches_recorded, "check_ok": verdict.ok}
+
+
+def spmd_sweeps(f, counts, zero_counts, backend: str = "nccl") -> dict:
+    """Both SPMD sweeps as the one rank of a ``backend`` group (NCCL takes
+    one rank per card) at the lattice ``f``: each equal to the whole-lattice
+    K1 sweep with 0 unequal elements, K1 launched once (contiguous) and once
+    per slab (scattered), and the bytes the rank hands to
+    ``torch.distributed``, counted by wrapping its calls.  Then each sweep's
+    time (CUDA events around back-to-back calls) beside the whole-lattice
+    K1's and the padded copy's.  The group is destroyed on the way out."""
+    import torch.distributed as dist
+    from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
+    from repro_torch.stencil import jacobi as stencil
+
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    handed: dict[str, int] = {}
+    batch, gather = dist.batch_isend_irecv, dist.all_gather
+
+    def counted_batch(ops):
+        for op in ops:
+            key = "p2p_sent" if op.op is dist.isend else "p2p_received"
+            handed[key] = handed.get(key, 0) + op.tensor.numel() * op.tensor.element_size()
+        return batch(ops)
+
+    def counted_gather(tensor_list, tensor, *args, **kw):
+        handed["all_gather_in"] = tensor.numel() * tensor.element_size()
+        handed["all_gather_out"] = sum(t.numel() * t.element_size() for t in tensor_list)
+        return gather(tensor_list, tensor, *args, **kw)
+
+    dist.batch_isend_irecv, dist.all_gather = counted_batch, counted_gather
+    try:
+        if dist.get_backend() != backend:
+            fail(f"the SPMD sweeps ran on {dist.get_backend()}, not {backend}")
+        ni, nj, nk = f.shape
+        cfg = stencil.JacobiGridConfig(ni=ni, nj=nj, nk=nk)
+        bpd = SPMD_BLOCKS_PER_DEV
+        whole = jacobi_sweep_cuda(f, di=ni, dj=nj)
+        runs = {"contiguous": (stencil.make_contiguous_sweep(cfg), f, 1),
+                "scattered": (stencil.make_scattered_sweep(cfg, bpd),
+                              stencil.scatter_lattice(f, 1, bpd).contiguous(), bpd)}
+        res = {}
+        for name, (sweep, local, want) in runs.items():
+            handed.clear()
+            torch.cuda.synchronize()
+            zero_counts()
+            out = sweep(local, 1 / 6)
+            torch.cuda.synchronize()
+            launched = counts()
+            if name == "scattered":
+                out = stencil.reassemble_scattered(out, 1, bpd)
+            unequal = int((out != whole).sum())
+            del out
+            res[name] = {"launches": launched["jacobi_sweep"], "unequal_elements": unequal,
+                         "bytes_handed": dict(handed)}
+            print(f"SPMD {name} sweep, 1 {dist.get_backend()} rank"
+                  + (f", {bpd} slabs" if name == "scattered" else "")
+                  + f": launches {launched}, {unequal} elements unequal to the "
+                  f"whole-lattice K1, bytes handed to torch.distributed {dict(handed)}")
+            if unequal or any(n != (want if k == "jacobi_sweep" else 0)
+                              for k, n in launched.items()):
+                fail(f"SPMD {name} sweep: {unequal} unequal elements, launches "
+                     f"{launched}, want {want} K1 launches and nothing else")
+        buf = torch.empty_like(f)
+        zero = torch.zeros_like(f[0])
+        whole_ms = time_ms(lambda: jacobi_sweep_cuda(f, di=ni, dj=nj, out=buf), 10)
+        copy_ms = time_ms(lambda: torch.cat([zero[None], f, zero[None]]), 10)
+        for name, (sweep, local, _) in runs.items():
+            res[name]["ms"] = time_ms(lambda: sweep(local, 1 / 6), 10)
+        del whole, buf
+        bnd = 8 * f.numel() / HBM_BYTES_PER_S * 1e3
+        print(f"SPMD sweeps at {tuple(f.shape)}: contiguous {res['contiguous']['ms']:.4f} "
+              f"ms, scattered {res['scattered']['ms']:.4f} ms a sweep; whole-lattice K1 "
+              f"{whole_ms:.4f} ms, byte bound {bnd:.4f} ms, padded copy "
+              f"(torch.cat of the lattice and two planes) {copy_ms:.4f} ms")
+        return res | {"backend": dist.get_backend(), "ranks": dist.get_world_size(),
+                      "blocks_per_dev": bpd, "whole_lattice_k1_ms": whole_ms,
+                      "padded_copy_ms": copy_ms, "bound_ms": bnd}
+    finally:
+        dist.batch_isend_irecv, dist.all_gather = batch, gather
+        dist.destroy_process_group()
+
+
+def controlled_drains(model, params, cfg, base_tokens, want, counts, zero_counts) -> dict:
+    """Two more drains of the serving workload: one with the control plane
+    (``control=ControlLoop.full(batch_cap=4)``) and one built from
+    ``spec.named("controlled_serving")`` widened to ``REPLICAS`` domains and
+    replicas and ``MAX_SEQ``.  Each must launch ``want`` and generate exactly
+    ``base_tokens``, the uncontrolled ``locality`` drain's tokens."""
+    from repro_torch import spec
+    from repro_torch.control import ControlLoop
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    s = spec.named("controlled_serving")
+    s = dataclasses.replace(s, num_domains=REPLICAS, serving=dataclasses.replace(
+        s.serving, num_replicas=REPLICAS, max_seq=MAX_SEQ))
+    engines = {
+        "control": lambda: ServingEngine(model, params, num_replicas=REPLICAS,
+                                         max_seq=MAX_SEQ, policy="locality",
+                                         control=ControlLoop.full(batch_cap=4)),
+        "spec": lambda: ServingEngine(model, params, spec=s)}
+    res = {}
+    for label, make in engines.items():
+        engine = make()
+        for req in requests(cfg, Request):
+            engine.submit(req)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        done = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        tokens = {r.uid: tuple(r.out_tokens) for r in done}
+        generated = sum(len(t) for t in tokens.values())
+        res[label] = {"wall_s": wall, "tokens_per_s": generated / wall,
+                      "launches": launched, "stats": vars(engine.stats),
+                      "steps": engine.runtime.step_count,
+                      "tokens_identical": tokens == base_tokens}
+        print(f"{QWEN} {label}-built drain: {engine.stats}, wall {wall:.4f} s, "
+              f"{generated / wall:.2f} tokens/s, {engine.runtime.step_count} scheduling "
+              f"rounds, launches {launched}; tokens identical to the locality drain "
+              f"{tokens == base_tokens}")
+        if any(n != want.get(name, 0) for name, n in launched.items()):
+            fail(f"{QWEN} {label}-built drain: launches {launched}, want {want}")
+        if tokens != base_tokens:
+            fail(f"{QWEN} {label}-built drain generated other tokens than the "
+                 f"uncontrolled locality drain")
+        del engine
+    return res
 
 
 T_START = time.perf_counter()
@@ -973,7 +1181,12 @@ def main() -> None:
             or stats.executed != nslabs:
         fail(f"runtime sweep: err {e_main}, launches {main_launches}, "
              f"executed {stats.executed}, want {nslabs} slabs")
+    stamp("3b")
+    spec_main = spec_sweep(f, out, di, counts, zero_counts)
     del out
+    stamp("3c")
+    spmd = spmd_sweeps(f, counts, zero_counts)
+    stamp("3d")
 
     steps = 3
     zero_counts()
@@ -1142,7 +1355,7 @@ def main() -> None:
         result = {p: {k: v for k, v in m.items() if k != "stats"}
                   | {"stats": vars(m["stats"])} for p, m in metrics.items()}
         result.update(idle_share=idle_share, kernels_in_drain=in_drain)
-        return model, params, result
+        return model, params, result, outs["locality"]
 
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1224,13 +1437,17 @@ def main() -> None:
 
     stamp(4)
     serving = {}
-    model, params, serving[QWEN] = serve(QWEN, cfg)
+    model, params, serving[QWEN], qwen_tokens = serve(QWEN, cfg)
+    stamp("4b")
+    serving[QWEN]["controlled"] = controlled_drains(
+        model, params, cfg, qwen_tokens, path_launches(cfg, N_REQUESTS), counts,
+        zero_counts)
     serving[QWEN].update(teacher_forced(QWEN, cfg, model, params))
     del model, params
     free_device_memory()
 
     stamp(5)
-    model, params, serving[RWKV] = serve(RWKV, rcfg)
+    model, params, serving[RWKV], _ = serve(RWKV, rcfg)
     # K4 on a decode step from the state a real prefill left in the cache
     caches = model.init_cache(1, MAX_SEQ)
     toks = torch.as_tensor(requests(rcfg, Request)[0].tokens, device=dev)[None]
@@ -1260,7 +1477,7 @@ def main() -> None:
     free_device_memory()
 
     stamp("5b")
-    model, params, serving[GRIFFIN] = serve(GRIFFIN, gcfg)
+    model, params, serving[GRIFFIN], _ = serve(GRIFFIN, gcfg)
     # K5 on a decode step from the state a real prefill left in the cache
     toks = torch.as_tensor(requests(gcfg, Request)[0].tokens, device=dev)[None]
     _, caches = model.prefill(params, {"tokens": toks}, model.init_cache(1, MAX_SEQ))
@@ -1351,32 +1568,41 @@ def main() -> None:
             "bound_ms": slab_bound[0], "bound_by": slab_bound[1],
             "library_ms": queued_us(slab_conv) / 1e3}
 
-    # the runtime sweep (host-driven, 240 launches): CUDA events around the
-    # whole drain, then one drain under the profiler for K1's device time
-    # and the card's idle share
-    sweep_ms = time_ms(lambda: run_runtime_sweep(
-        f, di=di, num_domains=domains, workers_per_domain=wpd), 3, warmup=1)
+    # the runtime sweep (host-driven, 240 launches), from the kwargs and from
+    # the spec: CUDA events around the whole drain, then one drain under the
+    # profiler for K1's device time and the card's idle share
+    from repro_torch import spec as port_spec
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            warm_profiler()
-            t0 = time.perf_counter()
-            run_runtime_sweep(f, di=di, num_domains=domains, workers_per_domain=wpd)
+
+    def timed_sweep(label, **kw):
+        sweep_ms = time_ms(lambda: run_runtime_sweep(f, di=di, **kw), 3, warmup=1)
+        for attempt in range(3):
             torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        spans = drop_warmup(device_spans(prof))
-        k1_spans = [(e - st) / 1e6 for name, st, e in spans if "jacobi_sweep_kernel" in name]
-        print(f"profiled runtime sweep, attempt {attempt + 1}: {len(k1_spans)} of "
-              f"{nslabs} K1 launches recorded")
-        if len(k1_spans) == nslabs:
-            break
-    else:
-        fail(f"profiled runtime sweep: {len(k1_spans)} K1 records, want {nslabs}")
-    busy = busy_ms(spans)
-    runtime = {"wall_ms": sweep_ms, "profiled_wall_ms": prof_wall_ms,
-               "device_ms": sum(k1_spans), "device_busy_ms": busy,
-               "idle_share": 1 - busy / prof_wall_ms}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                warm_profiler()
+                t0 = time.perf_counter()
+                run_runtime_sweep(f, di=di, **kw)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t0) * 1e3
+            spans = drop_warmup(device_spans(prof))
+            k1_spans = [(e - st) / 1e6 for name, st, e in spans
+                        if "jacobi_sweep_kernel" in name]
+            print(f"profiled {label}, attempt {attempt + 1}: {len(k1_spans)} of "
+                  f"{nslabs} K1 launches recorded")
+            if len(k1_spans) == nslabs:
+                break
+        else:
+            fail(f"profiled {label}: {len(k1_spans)} K1 records, want {nslabs}")
+        busy = busy_ms(spans)
+        return {"wall_ms": sweep_ms, "profiled_wall_ms": prof_wall_ms,
+                "device_ms": sum(k1_spans), "device_busy_ms": busy,
+                "idle_share": 1 - busy / prof_wall_ms, "k1_records": len(k1_spans)}
+
+    runtime = timed_sweep("runtime sweep", num_domains=domains, workers_per_domain=wpd)
+    spec_runtime = timed_sweep(f"spec-built runtime sweep ({SPEC_SWEEP})",
+                               spec=port_spec.named(SPEC_SWEEP))
+    sweep_ms, prof_wall_ms, busy = (runtime["wall_ms"], runtime["profiled_wall_ms"],
+                                    runtime["device_busy_ms"])
 
     before = JACOBI_BEFORE
     for name in ("jacobi_sweep", "jacobi_two_step"):
@@ -1395,9 +1621,15 @@ def main() -> None:
           f"; {before['runtime_sweep_ms'][1]} ms), bound {jb['jacobi_sweep'][0]:.4f} ms "
           f"({jb['jacobi_sweep'][0] / sweep_ms:.1%} of bound); profiled: wall "
           f"{prof_wall_ms:.4f} ms, K1 device time {runtime['device_ms']:.4f} ms in "
-          f"{len(k1_spans)} launches ({runtime['device_ms'] / nslabs * 1e3:.2f} us each; "
+          f"{nslabs} launches ({runtime['device_ms'] / nslabs * 1e3:.2f} us each; "
           f"PR 16: 7.03 ms), device busy {busy:.4f} ms, idle share "
           f"{runtime['idle_share']:.4f}")
+    print(f"run_runtime_sweep(spec={SPEC_SWEEP!r}): wall {spec_runtime['wall_ms']:.4f} ms "
+          f"(kwargs path {sweep_ms:.4f} ms); profiled: wall "
+          f"{spec_runtime['profiled_wall_ms']:.4f} ms, K1 device time "
+          f"{spec_runtime['device_ms']:.4f} ms in {nslabs} launches, device busy "
+          f"{spec_runtime['device_busy_ms']:.4f} ms, idle share "
+          f"{spec_runtime['idle_share']:.4f} (kwargs path {runtime['idle_share']:.4f})")
     del f, buf, x
 
     # K3 at the serving path's shapes (yardstick: SDPA, never called by the port)
@@ -1501,8 +1733,15 @@ def main() -> None:
             "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": jb[name][0],
             "bound_by": jb[name][1], "library_ms": library_ms[name],
             "unequal_elements": unequal[name]})
-    # K1's main path launches it on slabs: the slab shape and the whole drain
-    kernels[0].update(slab=slab, runtime_sweep=runtime)
+    # K1's main path launches it on slabs: the slab shape and the whole drain;
+    # the spec-built sweep and the SPMD sweeps launch it too
+    kernels[0].update(slab=slab, runtime_sweep=runtime,
+                      spec_runtime_sweep=spec_main | spec_runtime, spmd=spmd,
+                      launches_by_path={
+                          "run_runtime_sweep": main_launches["jacobi_sweep"],
+                          f"run_runtime_sweep(spec={SPEC_SWEEP})": spec_main["launches"],
+                          "make_contiguous_sweep": spmd["contiguous"]["launches"],
+                          "make_scattered_sweep": spmd["scattered"]["launches"]})
     for name, source, replaces, arch, worst, shapes, headline in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:26", QWEN, k3_worst, k3,

@@ -30,14 +30,25 @@ through K3, every WKV recurrence of an RWKV layer through K4 and every
 RG-LRU scan of a recurrent layer through K5.  Outputs are identical under every routing policy while the
 steal/local statistics differ as the paper predicts.
 
-``trace=`` takes any recorder with ``.attach(executor)`` (such as
-``repro.trace.TraceRecorder``) and records the router's behaviour.
-``batch=`` drains up to that many queued requests from one queue per grab;
-each still runs its own prefill and decode on its own cache.  The
-reference's ``control=`` (its control plane) and ``spec=`` (construction
-from a declarative spec) paths need ports of ``repro.control`` and
-``repro.spec`` and raise ``NotImplementedError`` until then (ROADMAP B6,
-B7).
+``trace=`` takes any recorder with ``.attach(executor)`` (such as the
+port's ``repro_torch.trace.TraceRecorder``) and records the router's
+behaviour as a replayable trace.  ``batch=`` drains up to that many queued
+requests from one queue per grab (an int or an adaptive
+``repro_torch.control.BatchGovernor``); each still runs its own prefill
+and decode on its own cache, so batched serving is token-identical to
+unbatched.  ``control=repro_torch.control.ControlLoop(...)`` attaches the
+control plane (cost routing, adaptive batching, the steal circuit-breaker)
+to the router.
+
+Spec construction (the preferred path): ``spec=`` takes a
+``repro_torch.spec.RuntimeSpec`` with a ``serving`` block
+(``spec.named("controlled_serving")`` is the canonical example), and the
+engine builds its whole router from it: queues, steal order, governor and
+breaker, penalty rule, batch policy and control plane.  Traces recorded
+off such an engine embed the spec, so ``replay(trace)`` rebuilds the exact
+router.  The raw kwargs (``policy``/``num_replicas``/``max_seq``/
+``pool_cap``/``batch``/``control``) then raise ``SpecError``; ``device``
+is the port's own and stays allowed.
 """
 from __future__ import annotations
 
@@ -129,13 +140,18 @@ class ServingEngine:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"was asked to run on {self.device}")
         if spec is not None:
-            raise NotImplementedError(
-                "spec= needs a port of repro.spec (RuntimeSpec, build): "
-                "ROADMAP B6")
-        if control is not None:
-            raise NotImplementedError(
-                "control= needs a port of repro.control (ControlLoop): "
-                "ROADMAP B7")
+            conflicts = [name for name, val, default in (
+                ("num_replicas", num_replicas, 2), ("max_seq", max_seq, 128),
+                ("policy", policy, "locality"), ("pool_cap", pool_cap, 256),
+                ("batch", batch, 1), ("control", control, None))
+                if val != default]
+            if conflicts:
+                from ..spec import SpecError
+                raise SpecError(
+                    f"spec-built engine: {conflicts} come from the spec "
+                    f"(serving/runtime blocks); drop the kwargs")
+            self._init_from_spec(model, params, spec, trace)
+            return
         if policy not in POLICIES:
             raise ValueError(policy)
         self.policy = policy
@@ -156,7 +172,13 @@ class ServingEngine:
             steal_penalty=self._steal_penalty,
             pool_cap=pool_cap,
         )
-        self.control = None
+        # optional control plane (repro_torch.control.ControlLoop): cost
+        # routing, adaptive batch sizing, storm circuit-breaking on this
+        # router.  Attached before the trace recorder so a recorded header
+        # names the effective (possibly breaker-wrapped) governor.
+        self.control = control
+        if control is not None:
+            control.attach(self._exec)
         # optional trace hook: record this engine's routing/steal behaviour
         # as a replayable trace (request payloads stay opaque; the
         # submission stream carries home replica + prompt-length cost).
@@ -165,6 +187,53 @@ class ServingEngine:
             trace.attach(self._exec)
         self._prefill_base = 0      # first-prefill tokens of served requests
         self._accidental_local = 0  # served by home replica, any routing
+
+    def _init_from_spec(self, model: Model, params: Any, spec: Any,
+                        trace: Optional[Any]) -> None:
+        """Build the whole router from a ``repro_torch.spec.RuntimeSpec``."""
+        from ..spec import SpecError
+        if spec.serving is None:
+            raise SpecError("ServingEngine needs a spec with a serving "
+                            "block (see spec.named('controlled_serving'))")
+        sv = spec.serving
+        expected = 1 if sv.policy == "single_queue" else sv.num_replicas
+        if spec.num_domains != expected:
+            raise SpecError(
+                f"serving policy {sv.policy!r} with {sv.num_replicas} "
+                f"replicas needs num_domains == {expected}, "
+                f"spec says {spec.num_domains}")
+        wd = spec.worker_domains
+        if wd is not None and len(wd) != sv.num_replicas:
+            raise SpecError(f"worker_domains pins {len(wd)} workers but "
+                            f"serving declares {sv.num_replicas} replicas")
+        if sv.policy != "locality" and spec.router.kind != "none":
+            # round_robin/single_queue submit with an explicit domain, so a
+            # declared router would never be consulted — and the recorded
+            # header would then name a policy that never ran.
+            raise SpecError(
+                f"serving policy {sv.policy!r} routes explicitly and would "
+                f"silently bypass router.kind={spec.router.kind!r}; use "
+                "policy 'locality' with a router, or router.kind 'none'")
+        if sv.policy == "single_queue" and wd is None:
+            # default one-worker-per-domain would under-staff the single
+            # shared queue; every replica serves domain 0.
+            spec = dataclasses.replace(spec,
+                                       worker_domains=(0,) * sv.num_replicas)
+        if trace is not None and spec.trace.record:
+            raise SpecError("spec already declares trace recording; drop "
+                            "the trace= kwarg (use Built.recorder instead)")
+        self.policy = sv.policy
+        self.replicas = [Replica(model, params, sv.max_seq)
+                         for _ in range(sv.num_replicas)]
+        built = spec.build(batch_handler=self._run_grab)
+        self._exec = built.executor
+        self.control = built.control
+        self.trace = built.recorder
+        if trace is not None:
+            trace.attach(self._exec)
+            self.trace = trace
+        self._prefill_base = 0
+        self._accidental_local = 0
 
     # -- runtime callbacks ---------------------------------------------------
     def _steal_penalty(self, task: Task, worker: Worker) -> float:

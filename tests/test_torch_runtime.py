@@ -106,8 +106,15 @@ class TestRuntimeSweepParity:
         assert str(got.value) == str(want.value)
 
     def test_spec_path_not_ported_yet(self):
-        with pytest.raises(NotImplementedError, match="repro.spec"):
-            port_sweep(np.zeros((10, 4, 4), np.float32), di=5, spec=object(),
+        """The spec path is ported now (name kept from before): a spec that
+        declares its own recording is refused with the port's SpecError, as
+        the reference refuses it (``tests/test_spec.py``)."""
+        from repro_torch import spec as port_spec
+
+        bad = port_spec.RuntimeSpec(num_domains=4,
+                                    trace=port_spec.TraceSpec(record=True))
+        with pytest.raises(port_spec.SpecError, match="trace="):
+            port_sweep(np.zeros((20, 4, 4), np.float32), di=5, spec=bad,
                        device="cpu")
 
     def test_needs_a_card_unless_asked_for_cpu(self):
@@ -115,6 +122,57 @@ class TestRuntimeSweepParity:
             pytest.skip("a GPU is present: the default device is usable")
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_sweep(np.zeros((10, 4, 4), np.float32), di=5)
+
+
+class TestSpecPath:
+    """``run_runtime_sweep(spec=...)``: the executor comes from the port's
+    ``repro_torch.spec``, as the reference's comes from ``repro.spec``."""
+
+    @pytest.mark.parametrize("name", ["paper_cyclic", "static_local",
+                                      "adaptive_theta", "controlled_replay"])
+    def test_matches_reference(self, name):
+        from repro import spec as ref_spec
+        from repro_torch import spec as port_spec
+
+        f = np.random.default_rng(3).standard_normal((40, 6, 8)).astype(np.float32)
+        g_ref, g_port = _Grab(), _Grab()
+        want, s_ref = ref_sweep(f, di=4, spec=ref_spec.named(name), trace=g_ref)
+        got, s_port = port_sweep(f, di=4, spec=port_spec.named(name), trace=g_port,
+                                 device="cpu")
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+        assert dataclasses.asdict(s_port) == dataclasses.asdict(s_ref)
+        assert _events(g_port.ex) == _events(g_ref.ex)
+
+    def test_spec_replaces_the_scheduling_kwargs(self):
+        from repro_torch import spec as port_spec
+
+        f = np.random.default_rng(4).standard_normal((40, 6, 8)).astype(np.float32)
+        g1, g2 = _Grab(), _Grab()
+        a, s1 = port_sweep(f, di=5, spec=port_spec.named("paper_cyclic"), trace=g1,
+                           device="cpu")
+        b, s2 = port_sweep(f, di=5, spec=port_spec.named("paper_cyclic"), trace=g2,
+                           num_domains=2, workers_per_domain=3, steal_order="random",
+                           device="cpu")
+        assert torch.equal(a, b) and s1 == s2
+        assert _events(g1.ex) == _events(g2.ex)
+        assert g1.ex.num_domains == 4
+
+    def test_spec_built_schedule_equals_raw(self):
+        """``paper_cyclic`` is the kwargs path with a greedy governor: the
+        same slab schedule and lattice (the spec's constant penalty only
+        adds to the penalty account)."""
+        from repro_torch import spec as port_spec
+
+        f = np.random.default_rng(5).standard_normal((40, 6, 8)).astype(np.float32)
+        g_spec, g_raw = _Grab(), _Grab()
+        a, s_spec = port_sweep(f, di=5, spec=port_spec.named("paper_cyclic"),
+                               trace=g_spec, device="cpu")
+        b, s_raw = port_sweep(f, di=5, num_domains=4, steal_order="cyclic",
+                              governor=port_rt.GreedySteal(), trace=g_raw, device="cpu")
+        assert torch.equal(a, b)
+        assert _events(g_spec.ex) == _events(g_raw.ex)
+        assert (s_spec.executed, s_spec.local, s_spec.stolen) == \
+            (s_raw.executed, s_raw.local, s_raw.stolen)
 
 
 def _drive(pkg, script, **kw):

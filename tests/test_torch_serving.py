@@ -22,16 +22,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro import spec as jax_spec
 from repro import trace as rtrace
+from repro.control import ControlLoop as JaxControlLoop
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduce_config as jax_reduce_config
 from repro.launch import serve as jax_serve
 from repro.models.model import build_model as jax_build_model
 from repro.serving import engine as jax_engine
+from repro_torch import spec as port_spec
+from repro_torch import trace as port_trace
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.control import ControlLoop
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model
+from repro_torch.runtime import Executor
 from repro_torch.serving.engine import POLICIES, Request, ServingEngine
 
 
@@ -101,6 +107,156 @@ class TestAgainstReference:
         assert got.n_tasks == want.n_tasks == 8
         assert got.stats == want.stats
         assert got.submissions == want.submissions
+
+
+def _serving_spec(pkg, policy="locality", replicas=2, record=False):
+    """``controlled_serving`` of ``pkg``'s spec package, with the serving
+    block's policy and replica count (and domains to match) replaced; a
+    policy that routes explicitly drops the cost router."""
+    s = pkg.named("controlled_serving")
+    s = dataclasses.replace(
+        s, num_domains=1 if policy == "single_queue" else replicas,
+        serving=dataclasses.replace(s.serving, policy=policy, num_replicas=replicas),
+        trace=pkg.TraceSpec(record=record))
+    if policy != "locality":
+        s = dataclasses.replace(s, router=pkg.RouterSpec(kind="none"))
+    return s
+
+
+class TestSpecAndControl:
+    """``tests/test_spec.py``'s engine cases and ``tests/test_control.py``'s
+    serving cases, on the port, and the controlled and spec-built engines
+    against the JAX package's."""
+
+    def test_engine_requires_serving_block(self, models):
+        _, _, _, pm, pp = models
+        with pytest.raises(port_spec.SpecError, match="serving"):
+            port_spec.named("paper_cyclic").build_engine(pm, pp, device="cpu")
+
+    def test_engine_rejects_domain_mismatch(self, models):
+        _, _, _, pm, pp = models
+        bad = dataclasses.replace(port_spec.named("controlled_serving"), num_domains=3)
+        with pytest.raises(port_spec.SpecError, match="num_domains"):
+            bad.build_engine(pm, pp, device="cpu")
+
+    def test_engine_rejects_pinned_workers_mismatch(self, models):
+        _, _, _, pm, pp = models
+        bad = dataclasses.replace(port_spec.named("controlled_serving"),
+                                  worker_domains=(0, 1, 1))
+        with pytest.raises(port_spec.SpecError, match="worker_domains"):
+            bad.build_engine(pm, pp, device="cpu")
+
+    def test_engine_rejects_router_bypassed_by_policy(self, models):
+        _, _, _, pm, pp = models
+        s = port_spec.named("controlled_serving")      # router.kind == "cost"
+        bad = dataclasses.replace(
+            s, serving=dataclasses.replace(s.serving, policy="round_robin"))
+        with pytest.raises(port_spec.SpecError, match="bypass"):
+            bad.build_engine(pm, pp, device="cpu")
+
+    @pytest.mark.parametrize("kwarg,value", [
+        ("batch", 4), ("num_replicas", 4), ("max_seq", 256),
+        ("policy", "round_robin"), ("pool_cap", 16), ("control", "loop")])
+    def test_engine_rejects_conflicting_kwargs(self, models, kwarg, value):
+        """Every spec-superseded raw kwarg is refused, not silently ignored;
+        the port's ``device`` stays allowed beside ``spec``."""
+        _, _, _, pm, pp = models
+        if value == "loop":
+            value = ControlLoop.full()
+        with pytest.raises(port_spec.SpecError, match=kwarg):
+            port_spec.named("controlled_serving").build_engine(
+                pm, pp, device="cpu", **{kwarg: value})
+
+    def test_spec_declared_recording(self, models):
+        cfg, _, _, pm, pp = models
+        s = _serving_spec(port_spec, record=True)
+        eng = ServingEngine(pm, pp, spec=s, device="cpu")
+        assert eng.trace is not None
+        _serve(eng, _requests(Request, cfg, 6, seed=2))
+        t = eng.trace.finish()
+        assert t.n_tasks == 6
+        res = port_trace.replay(t, assert_match=True)     # the header's spec alone
+        assert res.matches_recorded
+        with pytest.raises(port_spec.SpecError, match="trace="):
+            ServingEngine(pm, pp, spec=s, trace=port_trace.TraceRecorder(), device="cpu")
+
+    def test_spec_built_engine_schedule_matches_raw(self):
+        """The spec path wires the executor the raw kwargs do: the same
+        routing and steal schedule on the same submissions (no model)."""
+        def drive_exec(ex):
+            for i in range(24):
+                home = 0 if i % 4 else 1
+                ex.submit(ex.make_task(home=home, cost=float(4 + i % 5)))
+                ex.step()
+            ex.run_until_drained()
+            return ex.metrics.snapshot()
+
+        base = dataclasses.replace(
+            port_spec.named("controlled_serving"),
+            governor=port_spec.GovernorSpec(kind="greedy"),
+            router=port_spec.RouterSpec(kind="none"), batch=port_spec.BatchSpec())
+        raw = Executor(2, [0, 1], steal_order="longest",
+                       steal_penalty=port_spec.build_penalty(base.penalty),
+                       pool_cap=256, seed=0)
+        assert drive_exec(base.build().executor) == drive_exec(raw)
+
+    def test_batched_outputs_token_identical_all_policies(self, models):
+        cfg, _, _, pm, pp = models
+        for policy in POLICIES:
+            outs = {}
+            for batch in (1, 3):
+                eng = ServingEngine(pm, pp, num_replicas=2, max_seq=64, policy=policy,
+                                    batch=batch, device="cpu")
+                got, stats = _serve(eng, _requests(Request, cfg, max_new=3))
+                assert stats.served == 8
+                outs[batch] = got
+            assert outs[1] == outs[3], policy
+
+    @pytest.mark.parametrize("seed", [4, 7])
+    def test_controlled_engine_matches_reference(self, models, seed):
+        """``ControlLoop.full(batch_cap=4)`` on both engines: the JAX
+        engine's tokens and ``ServeStats``, and the uncontrolled tokens."""
+        cfg, jm, jp, pm, pp = models
+        kw = dict(num_replicas=2, max_seq=64, policy="locality")
+        want, wstats = _serve(jax_engine.ServingEngine(
+            jm, jp, control=JaxControlLoop.full(batch_cap=4), **kw),
+            _requests(jax_engine.Request, cfg, seed=seed, max_new=3))
+        eng = ServingEngine(pm, pp, control=ControlLoop.full(batch_cap=4), device="cpu", **kw)
+        got, gstats = _serve(eng, _requests(Request, cfg, seed=seed, max_new=3))
+        base, _ = _serve(ServingEngine(pm, pp, device="cpu", **kw),
+                         _requests(Request, cfg, seed=seed, max_new=3))
+        assert got == want == base
+        assert dataclasses.asdict(gstats) == dataclasses.asdict(wstats)
+        assert eng.runtime.router is not None and eng.control is not None
+
+    @pytest.mark.parametrize("policy,replicas", [("locality", 2), ("locality", 3),
+                                                 ("round_robin", 2),
+                                                 ("single_queue", 2)])
+    def test_spec_built_engine_matches_reference(self, models, policy, replicas):
+        """The same spec in both packages: the JAX engine's tokens, stats and
+        recorded trace (line for line), and the tokens of the raw engine."""
+        cfg, jm, jp, pm, pp = models
+        traces = []
+        for spec_pkg, trace_pkg, eng_cls, req_cls, m, p, kw in (
+                (jax_spec, rtrace, jax_engine.ServingEngine, jax_engine.Request,
+                 jm, jp, {}),
+                (port_spec, port_trace, ServingEngine, Request, pm, pp,
+                 {"device": "cpu"})):
+            rec = trace_pkg.TraceRecorder()
+            eng = eng_cls(m, p, spec=_serving_spec(spec_pkg, policy, replicas),
+                          trace=rec, **kw)
+            traces.append(_serve(eng, _requests(req_cls, cfg, 10, replicas, seed=5,
+                                                max_new=3))
+                          + (trace_pkg.dumps_lines(rec.finish()),))
+        (want, wstats, wlines), (got, gstats, glines) = traces
+        raw, _ = _serve(ServingEngine(pm, pp, num_replicas=replicas, max_seq=128,
+                                      policy=policy, device="cpu"),
+                        _requests(Request, cfg, 10, replicas, seed=5, max_new=3))
+        assert got == want == raw
+        assert dataclasses.asdict(gstats) == dataclasses.asdict(wstats)
+        assert glines == wlines
+        for trace_pkg in (rtrace, port_trace):
+            assert trace_pkg.replay(trace_pkg.loads_lines(glines)).matches_recorded
 
 
 class TestPortEngine:
@@ -180,9 +336,19 @@ class TestEntryPoints:
 
     @pytest.mark.parametrize("kwarg,item", [("spec", "B6"), ("control", "B7")])
     def test_unported_paths_raise(self, models, kwarg, item):
+        """Both paths are ported now (name and cases kept from before): a
+        spec with no serving block is refused with SpecError, and a control
+        loop attaches to one engine's router only."""
         _, _, _, pm, pp = models
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServingEngine(pm, pp, device="cpu", **{kwarg: object()})
+        if kwarg == "spec":
+            with pytest.raises(port_spec.SpecError, match="serving"):
+                ServingEngine(pm, pp, device="cpu", spec=port_spec.named("paper_cyclic"))
+            return
+        loop = ControlLoop.full()
+        eng = ServingEngine(pm, pp, device="cpu", control=loop)
+        assert eng.control is loop and eng.runtime.router is not None
+        with pytest.raises(RuntimeError):
+            ServingEngine(pm, pp, device="cpu", control=loop)
 
     def test_rejects_unknown_policy(self, models):
         _, _, _, pm, pp = models
