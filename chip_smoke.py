@@ -55,7 +55,13 @@ failure:
    window, prefill one past the row and key tiles, a split prefill in
    which some rows see none of a chunk's keys; the bf16 limit above.  Then
    the same K3 call, repeated, must give the same bits (decode 2047 and
-   prefill 1024, both split);
+   prefill 1024, both split).  Last, K3 at the new architectures' shapes
+   (``K3_NEW_SHAPES``), in bf16 as the model's views and in f32, under the
+   same limits: qwen3-moe-30b-a3b's 32 q / 4 kv heads of 128 at prefill
+   128 and 1024 and decode 517 and 2047, whisper-base's 8/8 heads of 64
+   without a causal mask at 1536 x 1536 (its encoder) and at Tq 128 and 1
+   over 1536 frames (its cross-attention), llama-3.2-vision-90b's 64/8
+   heads of 128 at Tq 128 and 1 over 1600 image tokens;
 3. the Jacobi main path, ``run_runtime_sweep`` on the full lattice
    (di = 10, 4 domains x 2 workers = 240 slab tasks), against the plain
    sweep, with the launch counts zeroed before and read after;
@@ -117,6 +123,35 @@ failure:
    freed; the peak device memory is printed), with two planted faults in
    the plain path (the RG-LRU state not carried across decode steps; the
    conv history not carried) that must each exceed the limit;
+5c. the same drains on full-width qwen3-moe-30b-a3b in bf16 (48 layers,
+   d 2048, 32 q / 4 kv heads of 128, 128 experts top-8 of width 768,
+   30.53 B parameters, 61.09 GB), once every earlier model is freed: K3
+   must launch 12 x 48 x 33 = 19008 times per drain and the plain
+   attention never; the peak device memory is printed, and the MoE
+   block's device time is split into router and top-k, dispatch, expert
+   products and combine (one layer's experts, at a decode step and at
+   each prompt length, times the drain's calls).  Its teacher-forced
+   comparison runs on an f32 build of its first 8 layers (122 GB whole in
+   f32), with two planted faults in the MoE block of the plain path (the
+   top-k weights not renormalised; the decode's gather reading the next
+   expert's weights) that must each exceed the limit, and prints how many
+   (token, layer) routing choices differ between the two paths;
+5d. the other four new configurations at full width: minicpm3-4b (MLA,
+   which runs its plain path on every device) and whisper-base whole,
+   phi3.5-moe-42b-a6.6b at 8 of 32 layers and llama-3.2-vision-90b at 5 of
+   100 (neither fits on one card whole); each a prefill of 128 tokens
+   (whisper with 1536 frames, the VLM with 1600 image tokens and its
+   cross-attention gates set to 0.5 and -0.7, from seed 0), then 8
+   teacher-forced decode steps, whose logits must equal the full
+   forward's (phi3.5-moe at a capacity factor of E / k, where nothing
+   drops) and the plain path's at the published capacity factor (with the
+   plain path's expert choices forced, for phi3.5-moe) within a bf16
+   limit, with K3 launched once per attention call and the plain path
+   none;
+5e. the plain long prefill on CUDA tensors: ``chunked_attention`` at 4096
+   tokens with qwen2-0.5b's heads and ``banded_attention`` at 4096 with
+   gemma3-1b's heads and window 512, each on f32 copies of bf16 values and
+   rounded once, against K3 per element within the bf16 limit;
 6. time each kernel, its plain version and the library's yardstick with
    CUDA events, beside its bound: K1 and K2 at the full lattice (yardstick
    ``conv3d`` with the six-point cross), one K1 slab launch of the runtime
@@ -132,7 +167,9 @@ failure:
    the WKV recurrence, so it has no yardstick); K5 at recurrentgemma-9b's
    prefill 1024 and 128 and decode (no yardstick either), K4 and K5 beside
    their previous designs' times; K3 at
-   recurrentgemma-9b's hd-256 prefill and decode shapes beside SDPA;
+   recurrentgemma-9b's hd-256 prefill and decode shapes beside SDPA, and
+   at the new architectures' shapes beside SDPA (without a mask where K3
+   runs without one);
 7. print the ``serving`` and ``kernels`` JSON lines, the card's name and
    power limit, and last the ``{"ok": true, ...}`` line.
 
@@ -206,6 +243,8 @@ N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = 12, 3, 32, 2048
 PROMPT_LEN = (128, 1024)
 POLICIES = ("locality", "round_robin", "single_queue")
 QWEN, RWKV, GRIFFIN = "qwen2-0.5b", "rwkv6-3b", "recurrentgemma-9b"
+QWEN3, PHI, MINICPM, WHISPER, VLM = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+                                    "minicpm3-4b", "whisper-base", "llama-3.2-vision-90b")
 # K3 at qwen2-0.5b's shapes: (name, Tq, Tk, q_offset)
 K3_SHAPES = [("prefill_128", 128, 128, 0), ("prefill_1024", 1024, 1024, 0),
              ("decode_0", 1, 2048, 0), ("decode_517", 1, 2048, 517),
@@ -265,8 +304,51 @@ K3_MISSED_CHUNK = 513
 # (12 local layers).  Measured on the H100: 2.5e-5 at |logits| 26, against
 # 5.25 with the RG-LRU state not carried across decode steps and 4.96 with
 # the conv history not carried.  The limit sits 40x above the sound reading
-# and 5000x below the nearer fault; both faults run in every call
-LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3}
+# and 5000x below the nearer fault; both faults run in every call.
+# qwen3-moe-30b-a3b, on an f32 build of 8 layers: the paths differ in K3's
+# f32 sums only, unless a top-8 routing choice flips on them (the script
+# counts the choices that differ).  Measured on the H100: 4.6e-6 at |logits|
+# 4.5 with no choice differing, against 1.63 with the top-k weights not
+# renormalised and 1.84 with the decode's gather reading the next expert's
+# weights; the limit sits 200x above the sound reading and 1600x below the
+# nearer fault; both faults run in every call
+LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3, QWEN3: 1e-3}
+# the other four new configurations in bf16: decoded logits against the full
+# forward, and the kernel path against the plain path, within qwen2-0.5b's
+# bf16 limit (4 bf16 ulps at |logits| 8-16).  Measured on the H100 (PERF.md
+# §6): against the forward 0.1016 (minicpm3-4b, 62
+# layers), 0.0176 (whisper-base), 0.0703 (phi3.5-moe, 8 layers), 0.0859
+# (llama-vision, 5 layers); against the plain path 0 (minicpm3-4b: MLA runs
+# plain on both), 0.0195, 0.1484 (llama-vision), and 2.15 for phi3.5-moe
+# with 26 top-2 routing choices flipped, hence its forced routing
+OTHER_ATOL = {MINICPM: 0.25, WHISPER: 0.25, PHI: 0.25, VLM: 0.25}
+# the other architectures (ROADMAP D).  qwen3-moe-30b-a3b is served whole
+# (30.53 B parameters, 61.09 GB in bf16); its teacher-forced comparison runs
+# on an f32 build of its first QWEN3_F32_LAYERS layers (122 GB whole in
+# f32).  The other four run a prefill of OTHER_PREFILL tokens and
+# OTHER_DECODE decode steps at full width, phi3.5-moe (83.7 GB whole) and
+# llama-3.2-vision-90b (181 GB whole) at the depth given here
+QWEN3_F32_LAYERS = 8
+OTHER_DEPTH = {MINICPM: None, WHISPER: None, PHI: 8, VLM: 5}
+OTHER_PREFILL, OTHER_DECODE = 128, 8
+VLM_GATES = (0.5, -0.7)       # gate_x, gate_m: non-zero, so the cross path counts
+# K3 at the new architectures' shapes: (name, Hq, Hkv, hd, Tq, Tk, q_offset,
+# causal).  qwen3-moe: 32 q / 4 kv heads of 128 (group 8); whisper-base: 8/8
+# heads of 64, its encoder's self-attention and its decoder's
+# cross-attention without a causal mask over 1536 frames; the VLM: 64/8
+# heads of 128, cross-attention over 1600 image tokens
+K3_NEW_SHAPES = {
+    QWEN3: [("prefill_128", 32, 4, 128, 128, 128, 0, True),
+            ("prefill_1024", 32, 4, 128, 1024, 1024, 0, True),
+            ("decode_517", 32, 4, 128, 1, 2048, 517, True),
+            ("decode_2047", 32, 4, 128, 1, 2048, 2047, True)],
+    WHISPER: [("encoder_1536", 8, 8, 64, 1536, 1536, 0, False),
+              ("cross_128", 8, 8, 64, 128, 1536, 0, False),
+              ("cross_1", 8, 8, 64, 1, 1536, 0, False)],
+    VLM: [("cross_128", 64, 8, 128, 128, 1600, 0, False),
+          ("cross_1", 64, 8, 128, 1, 1600, 0, False)]}
+# the plain long prefill on the card, against K3: (config, T, window)
+LONG_PREFILL = [(QWEN, 4096, 0), ("gemma3-1b", 4096, 512)]
 
 
 def fail(msg: str) -> None:
@@ -374,13 +456,16 @@ def bound(nbytes: float, flops: float, flops_per_s: float):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2):
+def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2, causal=True):
     """Least time for one K3 call on these inputs: the larger of the bytes
     it must move (q, k, v rows it reads once, o written once: the visible
-    keys only) over HBM, and its flops (4*hd per visible (head, query, key)
-    pair) over the bf16 tensor-core peak."""
-    pairs = sum(min(tk, q_offset + t + 1) for t in range(tq))
-    visible = min(tk, q_offset + tq)
+    keys only, all Tk without a causal mask) over HBM, and its flops (4*hd
+    per visible (head, query, key) pair) over the bf16 tensor-core peak."""
+    if causal:
+        pairs = sum(min(tk, q_offset + t + 1) for t in range(tq))
+        visible = min(tk, q_offset + tq)
+    else:
+        pairs, visible = tq * tk, tk
     nbytes = elem_bytes * hd * (2 * b * hq * tq + 2 * b * hkv * visible)
     return bound(nbytes, 4 * b * hq * hd * pairs, BF16_FLOPS_PER_S)
 
@@ -395,6 +480,37 @@ def k4_bound(b, t, h, hd, elem_bytes=2, state_in=True):
     nbytes = 3 * elem_bytes * n + 4 * n + 4 * n + 4 * h * hd \
         + 4 * b * h * hd * hd * (2 if state_in else 1)
     return bound(nbytes, 5 * n * hd, F32_FLOPS_PER_S)
+
+
+def time_k3(label, q, k, v, *, q_offset=0, causal=True, window=0) -> dict:
+    """K3's device time on these inputs beside its plain version's, its
+    bound and its yardstick: SDPA (which the port never calls) over the
+    filled slots at decode, else with a causal mask or none as K3 runs.
+    The causal mask is K3's window too wherever the window binds nothing
+    (a window of 2048 over at most 2048 keys)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tq, tk = q.shape[2], k.shape[2]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if causal and tq == 1:
+        visible = min(tk, q_offset + 1)
+        lib_call = lambda: sdpa(q, k[:, :, :visible], v[:, :, :visible],  # noqa: E731
+                                enable_gqa=True)
+    else:
+        lib_call = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
+    e_lib = max_err(lib_call(), mha_ref(q, k, v, **kw))
+    bnd, by = k3_bound(q.shape[0], q.shape[1], k.shape[1], tq, tk, q.shape[3], q_offset,
+                       causal=causal)
+    r = {"ms": device_ms(lambda: flash_attention(q, k, v, bq=tq, bk=tk, **kw)),
+         "plain_ms": device_ms(lambda: mha_ref(q, k, v, **kw), 5),
+         "bound_ms": bnd, "bound_by": by, "library_ms": device_ms(lib_call)}
+    print(f"flash_attention {label}: {r['ms']:.4f} ms, bound {bnd:.6f} ms by {by} "
+          f"({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, library sdpa "
+          f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x; max_abs_err vs "
+          f"plain {e_lib:.3e})")
+    return r
 
 
 class Timed:
@@ -700,6 +816,290 @@ def controlled_drains(model, params, cfg, base_tokens, want, counts, zero_counts
     return res
 
 
+class RoutingLog:
+    """Within ``with``: every MoE block's expert choices, one (tokens, k)
+    tensor of sorted expert indices per call, in call order (the port's
+    ``moe.route`` wrapped; restored on the way out).  With ``force`` (the
+    calls of another log), each call's choices are replaced by the forced
+    call's and weighted by this run's own gates: teacher-forced routing."""
+
+    def __init__(self, force: list | None = None):
+        self.force = force
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.sound, self.calls = moe, moe.route, []
+
+        def recording(p, xg, cfg):
+            gates, topv, topi = self.sound(p, xg, cfg)
+            if self.force is not None:
+                topi = self.force[len(self.calls)].reshape(topi.shape)
+                topv = torch.gather(gates, -1, topi)
+                topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+            self.calls.append(topi.reshape(-1, topi.shape[-1]).sort(-1).values)
+            return gates, topv, topi
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.sound
+
+
+def routes_differ(a: list, b: list) -> int:
+    """(token, layer) pairs whose chosen experts differ between two runs'
+    calls, matched call for call."""
+    if [x.shape for x in a] != [y.shape for y in b]:
+        fail(f"routing logs of different shapes: {len(a)} and {len(b)} calls")
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def k3_new_shapes(gen, dev, k3_check) -> tuple[dict, float, float]:
+    """K3 against ``mha_ref`` per element at ``K3_NEW_SHAPES``, in bf16 (as
+    the model passes them: (B, T, H, hd) projections as (B, H, T, hd)
+    views) and in f32.  Returns the bf16 inputs by (arch, name) for phase 6
+    and the largest bf16 and f32 errors."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+
+    inputs, worst = {}, {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for arch, shapes in K3_NEW_SHAPES.items():
+        for name, hq, hkv, hd, tq, tk, qo, causal in shapes:
+            for dtype, tol in ((torch.bfloat16, K3_BF16_TOL), (torch.float32, K3_F32_TOL)):
+                q = torch.randn((1, tq, hq, hd), generator=gen, device=dev).to(dtype)
+                k, v = (torch.randn((1, tk, hkv, hd), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+                q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+                kw = dict(causal=causal, q_offset=qo)
+                e = k3_check(f"{str(dtype).split('.')[-1]} {arch} {name} q {tuple(q.shape)} "
+                             f"kv {tuple(k.shape)} q_offset={qo} causal={causal}",
+                             flash_attention(q, k, v, bq=tq, bk=tk, **kw),
+                             mha_ref(q, k, v, **kw), tol)
+                worst[dtype] = max(worst[dtype], e)
+                if dtype is torch.bfloat16:
+                    inputs[arch, name] = (q, k, v, qo, causal)
+    return inputs, worst[torch.bfloat16], worst[torch.float32]
+
+
+def long_prefill(gen, dev, k3_check) -> dict:
+    """B8's rest on the card: the plain ``chunked_attention`` (qwen2-0.5b's
+    heads) and ``banded_attention`` (gemma3-1b's heads and window) at 4096
+    tokens on CUDA tensors, against K3 per element.  The plain forms run on
+    f32 copies of the same bf16 values and are rounded once to bf16, as
+    ``mha_ref``'s result is; run in bf16 they round the softmax weights to
+    bf16 before P.V (as the reference does, and K3 does not), and that
+    error is printed beside."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import attention
+
+    res = {}
+    for arch, t, win in LONG_PREFILL:
+        cfg = get_config(arch)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = torch.randn((1, t, h, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((1, t, kvh, hd), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        got = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              window=win, bq=t, bk=t)
+        if win:
+            name, plain = "banded_attention", lambda *x: attention.banded_attention(*x, 0, win)
+        else:
+            name, plain = "chunked_attention", lambda *x: attention.chunked_attention(*x, 0)
+        want = plain(q.float(), k.float(), v.float()).bfloat16()
+        in_bf16 = plain(q, k, v)
+        want, in_bf16 = (x.reshape(1, t, h, hd).transpose(1, 2) for x in (want, in_bf16))
+        e = k3_check(f"bf16 {name} (plain, on f32 copies) at {arch}'s heads {(h, kvh, hd)}, "
+                     f"T {t}, window {win}, vs K3", got, want, K3_BF16_TOL)
+        e_bf16 = max_err(got, in_bf16)
+        print(f"{name} run in bf16 (softmax weights rounded to bf16 before P.V) vs K3: "
+              f"max_abs_err {e_bf16:.3e}")
+        res[name] = {"arch": arch, "t": t, "window": win, "max_abs_err": e,
+                     "max_abs_err_run_in_bf16": e_bf16}
+    return res
+
+
+def moe_split(params, cfg, dev, prompt_lens, gen) -> dict:
+    """Device time of the MoE block's phases (router and top-k, dispatch,
+    expert products, combine; the whole block beside them, whose rest is
+    the load-balance loss) on layer 0's experts, CUDA events behind a
+    device sleep: at a decode step (one token: the gather) and at each of
+    the drain's prompt lengths (the batched product).  Per drain: the
+    decode time x layers x decode steps, plus the prefills x layers."""
+    from repro_torch.models import moe
+
+    p = params["stack"][0]["moe"]
+    dtype = p["w_gate"].dtype
+
+    def phases(t, iters):
+        x = torch.randn((1, t, cfg.d_model), generator=gen, device=dev).to(dtype)
+        xg = moe.group(x, moe.num_groups_for(1, t))
+        _, topv, topi = moe.route(p, xg, cfg)
+        plan = moe.dispatch(xg, topv, topi, cfg)
+        y = moe.expert_products(p, plan)
+        return {"route": device_ms(lambda: moe.route(p, xg, cfg), iters),
+                "dispatch": device_ms(lambda: moe.dispatch(xg, topv, topi, cfg), iters),
+                "expert_products": device_ms(lambda: moe.expert_products(p, plan), iters),
+                "combine": device_ms(lambda: moe.combine(plan, y), iters),
+                "block": device_ms(lambda: moe.moe_block(p, x, cfg), iters)}
+
+    m = cfg.moe
+    decode = phases(1, 20)
+    prefill = [phases(t, 5) for t in prompt_lens]
+    steps = len(prompt_lens) * MAX_NEW
+    per_drain = {name: cfg.num_layers * (decode[name] * steps + sum(pf[name] for pf in prefill))
+                 for name in decode}
+    chosen = 3 * m.top_k * cfg.d_model * m.d_ff_expert * torch.finfo(dtype).bits // 8
+    bnd = bound(chosen, 6 * m.top_k * cfg.d_model * m.d_ff_expert, BF16_FLOPS_PER_S)
+    print(f"{cfg.name} MoE block, layer 0, decode (1 token, gather): " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in decode.items())
+        + f"; expert products bound {bnd[0] * 1e3:.2f} us by {bnd[1]} (the {m.top_k} "
+        f"chosen experts' weights, {chosen / 1e6:.1f} MB)")
+    print(f"{cfg.name} MoE block per drain ({len(prompt_lens)} prefills, {steps} decode "
+          f"steps, {cfg.num_layers} layers): " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in per_drain.items()))
+    return {"decode_ms": decode, "prefill_ms_by_length": dict(zip(prompt_lens, prefill)),
+            "per_drain_ms": per_drain, "decode_expert_products_bound_ms": bnd[0]}
+
+
+def attention_calls(cfg, frames: bool) -> int:
+    """K3 launches of one forward, prefill or decode call of ``cfg``: one
+    per attention layer (none for MLA, which runs its plain path), one
+    more per "cross" layer, and one per encoder layer when frames are
+    encoded."""
+    per = sum((cfg.mla is None) + (kind == "cross") for kind in cfg.layer_kinds())
+    return per + (cfg.encoder.num_layers if frames and cfg.encoder is not None else 0)
+
+
+def other_archs(dev, build, counts, zero_counts, limits) -> dict:
+    """The four other new configurations at full width (depth cut as
+    ``OTHER_DEPTH`` says): a prefill of ``OTHER_PREFILL`` tokens (whisper
+    with its frames, the VLM with its image tokens and gates set non-zero,
+    all from seed 0), then ``OTHER_DECODE`` teacher-forced decode steps.
+    Their logits must equal the full forward's within ``limits[arch]`` (the
+    MoE config at a capacity factor of E / k, where nothing can drop) and
+    the plain path's (``use_kernel=False``) at the published capacity
+    factor; K3 must carry every attention call but MLA's.  For an MoE
+    config the kernel path takes the plain path's expert choices
+    (``RoutingLog(force=...)``), as the teacher-forced comparisons take its
+    tokens: the plain path rounds attention's softmax weights to bf16 and K3
+    does not, and a top-k choice flips on such differences.  How many
+    choices differ unforced, and that run's gap, are printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    res = {}
+    n = OTHER_PREFILL + OTHER_DECODE
+    for arch, depth in OTHER_DEPTH.items():
+        cfg = get_config(arch)
+        if depth:
+            print(f"{arch}: cut to {depth} of {cfg.num_layers} layers (the whole model "
+                  f"does not fit on one card)")
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        model, params = build(arch, cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, n),
+                               device=dev)[None]
+        extras = {}
+        if cfg.encoder is not None:
+            extras["frames"] = (0.1 * torch.randn(
+                (1, cfg.encoder.num_frames, cfg.encoder.d_model), generator=gen,
+                device=dev)).to(model.dtype)
+        if cfg.vision is not None:
+            extras["vision"] = (0.1 * torch.randn(
+                (1, cfg.vision.num_image_tokens, cfg.d_model), generator=gen,
+                device=dev)).to(model.dtype)
+            for layer in params["stack"]:
+                if "gate_x" in layer:
+                    layer["gate_x"].fill_(VLM_GATES[0])
+                    layer["gate_m"].fill_(VLM_GATES[1])
+        no_drop = cfg
+        if cfg.moe is not None:
+            no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+            print(f"{arch}: forward against decode at capacity factor "
+                  f"{no_drop.moe.capacity_factor} (E / k: an expert takes every token; "
+                  f"published {cfg.moe.capacity_factor})")
+        want_k3 = attention_calls(cfg, True) + OTHER_DECODE * attention_calls(cfg, False)
+
+        def stepwise(m, want):
+            """Prefill, then the teacher-forced decode steps: the logits of
+            positions OTHER_PREFILL - 1 .. n - 1, f32."""
+            torch.cuda.synchronize()
+            zero_counts()
+            caches = m.init_cache(1, n)
+            logits, caches = m.prefill(params, {"tokens": toks[:, :OTHER_PREFILL], **extras},
+                                       caches)
+            rows = [logits[:, -1]]
+            for pos in range(OTHER_PREFILL, n):
+                logits, caches = m.decode_step(params, toks[:, pos:pos + 1], pos, caches)
+                rows.append(logits[:, -1])
+            torch.cuda.synchronize()
+            if counts()["flash_attention"] != want:
+                fail(f"{arch}: prefill and decode launched {counts()}, want {want} K3")
+            return torch.cat(rows).float(), counts()
+
+        kernel_nd = build_model(no_drop, device=dev)
+        with RoutingLog() as log:
+            zero_counts()
+            full = kernel_nd.forward(params, toks, extras=extras)[0][0, OTHER_PREFILL - 1:]
+            torch.cuda.synchronize()
+            fwd_launches = counts()
+            steps_nd, launched_nd = stepwise(kernel_nd, want_k3)
+        if fwd_launches["flash_attention"] != attention_calls(cfg, True) or \
+                fwd_launches["attention_plain_calls"]:
+            fail(f"{arch}: the full forward launched {fwd_launches}")
+        gap_forward = float((steps_nd - full.float()).abs().max())
+        flips_forward = None
+        if cfg.moe is not None:
+            layers = cfg.num_layers
+            fwd, rest = log.calls[:layers], log.calls[layers:]
+            stepped = [torch.cat([rest[i]] + [rest[layers * (1 + s) + i]
+                                              for s in range(OTHER_DECODE)])
+                       for i in range(layers)]
+            flips_forward = routes_differ([x[OTHER_PREFILL - 1:] for x in fwd],
+                                          [x[OTHER_PREFILL - 1:] for x in stepped])
+        steps_k, launched_k = steps_nd, launched_nd
+        with RoutingLog() as log_k:
+            if no_drop is not cfg:
+                steps_k, launched_k = stepwise(build_model(cfg, device=dev), want_k3)
+        with RoutingLog() as log_p:
+            steps_p, launched_p = stepwise(build_model(cfg, device=dev, use_kernel=False), 0)
+        gap_unforced = float((steps_k - steps_p).abs().max())
+        flips_plain, steps_kf = None, steps_k
+        if cfg.moe is not None:
+            flips_plain = routes_differ(log_k.calls, log_p.calls)
+            with RoutingLog(force=log_p.calls):
+                steps_kf, _ = stepwise(build_model(cfg, device=dev), want_k3)
+        gap_plain = float((steps_kf - steps_p).abs().max())
+        limit = limits[arch]
+        print(f"{arch}: prefill {OTHER_PREFILL} + {OTHER_DECODE} decode steps "
+              f"(|logits| up to {float(full.float().abs().max()):.3f}): max_abs_err vs the "
+              f"full forward {gap_forward:.6f}, vs the plain path {gap_plain:.6f}"
+              + ("" if cfg.moe is None else " with its expert choices") + f"; limit "
+              f"{limit}; K3 launches {launched_k['flash_attention']} (want {want_k3}), plain "
+              f"path: {launched_p['attention_plain_calls']} plain attention calls, "
+              f"{launched_p['flash_attention']} K3"
+              + ("" if cfg.moe is None else f"; (token, layer) routing choices that differ: "
+                 f"{flips_forward} forward vs decode, {flips_plain} kernel vs plain path, "
+                 f"whose logits differ by {gap_unforced:.6f} unforced"))
+        if launched_p["flash_attention"] or not all(
+                bool(x.isfinite().all()) for x in (full, steps_nd, steps_k, steps_kf, steps_p)):
+            fail(f"{arch}: the plain path launched K3 or logits are not finite")
+        if gap_forward > limit or gap_plain > limit:
+            fail(f"{arch}: decoded logits differ from the full forward by {gap_forward} "
+                 f"and from the plain path by {gap_plain}, limit {limit}")
+        res[arch] = {"layers": cfg.num_layers, "cut_from": get_config(arch).num_layers,
+                     "params": sum(x.numel() for x in leaves(params)),
+                     "max_abs_err_vs_forward": gap_forward, "max_abs_err_vs_plain": gap_plain,
+                     "max_abs_err_vs_plain_unforced": gap_unforced, "limit": limit,
+                     "k3_launches": launched_k["flash_attention"],
+                     "routes_differ_forward": flips_forward, "routes_differ_plain": flips_plain}
+        del model, params, kernel_nd
+        free_device_memory()
+    return res
+
+
 T_START = time.perf_counter()
 
 
@@ -731,6 +1131,8 @@ def main() -> None:
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
     from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    from repro_torch.models import attention as attn_model
+    from repro_torch.models import moe as moe_model
     from repro_torch.models import rglru as rglru_model
     from repro_torch.models.attention import decode_attention
     from repro_torch.models.model import build_model
@@ -765,11 +1167,24 @@ def main() -> None:
         return rglru_scan_ref(*args, **kw)
 
     rglru_kernel.rglru_scan_ref = rglru_ops.rglru_scan_ref = counted_rglru_ref
+    # and the plain attention forms, where the model's attention block
+    # reaches them (this script's own comparisons hold their own references)
+    plain_attn = {"calls": 0}
+
+    def counted_attention(fn):
+        def counted(*args, **kw):
+            plain_attn["calls"] += 1
+            return fn(*args, **kw)
+        return counted
+
+    for fname in ("direct_attention", "decode_attention", "chunked_attention",
+                  "banded_attention"):
+        setattr(attn_model, fname, counted_attention(getattr(attn_model, fname)))
 
     def zero_counts():
         jacobi_sweep_cuda.launches = jacobi_two_step_cuda.launches = 0
         flash_attention.launches = wkv6_cuda.launches = plain_wkv["calls"] = 0
-        rglru_scan_cuda.launches = plain_rglru["calls"] = 0
+        rglru_scan_cuda.launches = plain_rglru["calls"] = plain_attn["calls"] = 0
 
     def counts():
         return {"jacobi_sweep": jacobi_sweep_cuda.launches,
@@ -777,7 +1192,8 @@ def main() -> None:
                 "flash_attention": flash_attention.launches,
                 "wkv6": wkv6_cuda.launches, "wkv6_plain_calls": plain_wkv["calls"],
                 "rglru": rglru_scan_cuda.launches,
-                "rglru_plain_calls": plain_rglru["calls"]}
+                "rglru_plain_calls": plain_rglru["calls"],
+                "attention_plain_calls": plain_attn["calls"]}
 
     def path_launches(cfg, n_requests):
         """The launches of each kernel that serving ``n_requests`` requests
@@ -1021,6 +1437,13 @@ def main() -> None:
         if not all(torch.equal(flash_attention(q, k, v, **kw), first) for _ in range(3)):
             fail(f"K3 {label}: repeated calls differ")
     print("K3 repeat calls bit-identical at qwen2 and hd 256 decode_2047 and prefill_1024")
+    # the new architectures' shapes: head dim 128 at group 8, attention
+    # without a causal mask, cross-attention with Tk != Tq
+    k3n_inputs, e_bf16, e_f32 = k3_new_shapes(gen, dev, k3_check)
+    k3_bf16, k3_f32 = max(k3_bf16, e_bf16), max(k3_f32, e_f32)
+    torch.cuda.synchronize()
+    if k3_worst > 1.0:
+        fail(f"K3 disagrees with mha_ref: an element used {k3_worst:.3f} of its limit")
     errs["flash_attention"] = max(k3_f32, k3_bf16)
 
     print(f"K4 limit, per element of o and of the final state: |err| <= {K4_REL} "
@@ -1512,6 +1935,59 @@ def main() -> None:
     del model, params
     free_device_memory()
 
+    stamp("5c")
+    # qwen3-moe-30b-a3b whole in bf16, once every earlier model is freed
+    qcfg = get_config(QWEN3)
+    torch.cuda.reset_peak_memory_stats()
+    model, params, serving[QWEN3], _ = serve(QWEN3, qcfg)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{QWEN3} bf16, served whole: peak device memory {peak} B ({peak / 1e9:.2f} GB)")
+    serving[QWEN3]["peak_bytes"] = peak
+    serving[QWEN3]["moe_split"] = moe_split(
+        params, qcfg, dev, sorted(len(r.tokens) for r in requests(qcfg, Request)), gen)
+    del model, params
+    free_device_memory()
+    # the teacher-forced comparison on an f32 build of its first layers, with
+    # two planted faults in the MoE block of the plain path
+    f32cfg = dataclasses.replace(qcfg, dtype="float32", num_layers=QWEN3_F32_LAYERS)
+    print(f"{QWEN3} f32 build: cut to {QWEN3_F32_LAYERS} of {qcfg.num_layers} layers "
+          f"(122 GB whole in f32)")
+    model, params = build(QWEN3, f32cfg)
+    route, products = moe_model.route, moe_model.expert_products
+
+    def unnormalised(p, xg, c):
+        gates, _, topi = route(p, xg, c)
+        return gates, torch.gather(gates, -1, topi), topi
+
+    def next_expert(p, plan):
+        if "idx" in plan:
+            plan = dict(plan, idx=(plan["idx"] + 1) % f32cfg.moe.num_experts)
+        return products(p, plan)
+
+    faults = {"top-k weights not renormalised": (moe_model, "route", unnormalised),
+              "decode gathers the next expert's weights": (moe_model, "expert_products",
+                                                           next_expert)}
+    with RoutingLog() as log:
+        serving[QWEN3].update(teacher_forced(QWEN3, f32cfg, model, params, faults))
+    calls = QWEN3_F32_LAYERS * (1 + MAX_NEW)
+    flips = routes_differ(log.calls[:calls], log.calls[calls:2 * calls])
+    print(f"{QWEN3} teacher-forced: (token, layer) routing choices that differ between "
+          f"the kernel and the plain path: {flips} of "
+          f"{sum(x.shape[0] for x in log.calls[:calls])}")
+    serving[QWEN3]["teacher_forced_routes_differ"] = flips
+    del model, params
+    free_device_memory()
+
+    stamp("5d")
+    serving["other_architectures"] = other_archs(dev, build, counts, zero_counts, OTHER_ATOL)
+
+    stamp("5e")
+    long_plain = long_prefill(gen, dev, k3_check)
+    torch.cuda.synchronize()
+    if k3_worst > 1.0:
+        fail(f"the plain long prefill disagrees with K3: an element used {k3_worst:.3f} "
+             f"of its limit")
+
     # -- 6. timing ---------------------------------------------------------
     stamp(6)
     sites = f.numel()
@@ -1632,30 +2108,11 @@ def main() -> None:
           f"{spec_runtime['idle_share']:.4f} (kwargs path {runtime['idle_share']:.4f})")
     del f, buf, x
 
-    # K3 at the serving path's shapes (yardstick: SDPA, never called by the port)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K3 at the serving path's shapes
     k3 = {}
     for name, tq, tk, qo in K3_SHAPES:
-        q, k, v, _ = k3_inputs[name]
-        visible = min(tk, qo + tq)
-        if tq == 1:     # decode: the filled slots are the whole function
-            lib_call = lambda: sdpa(q, k[:, :, :visible], v[:, :, :visible],  # noqa: E731
-                                    enable_gqa=True)
-        else:
-            lib_call = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-        e_lib = max_err(lib_call(), mha_ref(q, k, v, q_offset=qo))
-        bnd, by = k3_bound(1, hq, hkv, tq, tk, hd, qo)
-        k3[name] = {
-            "ms": device_ms(lambda: flash_attention(q, k, v, q_offset=qo, bq=tq, bk=tk)),
-            "plain_ms": device_ms(lambda: mha_ref(q, k, v, q_offset=qo), 5),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": device_ms(lib_call)}
-        r = k3[name]
         plan = dataclasses.asdict(k3_plan((hq, hkv, hd), tq, tk, qo))
-        print(f"flash_attention {name} (plan {plan}): {r['ms']:.4f} ms, bound "
-              f"{bnd:.6f} ms by {by} "
-              f"({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
-              f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
+        k3[name] = time_k3(f"{name} (plan {plan})", *k3_inputs[name][:3], q_offset=qo)
 
     # K4 at rwkv6-3b's shapes, from a carried state written in place as the
     # model does (no PyTorch call computes the WKV recurrence: no yardstick)
@@ -1693,30 +2150,18 @@ def main() -> None:
               f"({before / m['ms']:.2f}x), plain {m['plain_ms']:.4f} ms, "
               f"library: none (no PyTorch call computes the recurrence)")
 
-    # K3 at recurrentgemma-9b's hd-256 shapes (prefill with window 2048, which
-    # binds nothing at T <= 2048, so SDPA's causal mask is the same function)
+    # K3 at recurrentgemma-9b's hd-256 shapes (prefill with window 2048), and
+    # at the new architectures' shapes (without a mask where K3 runs without)
     k3g = {}
     for name, tq, tk, qo, win in K3_GRIFFIN_SHAPES:
-        q, k, v, _, _ = k3g_inputs[name]
-        visible = min(tk, qo + tq)
-        if tq == 1:
-            lib_call = lambda: sdpa(q, k[:, :, :visible], v[:, :, :visible],  # noqa: E731
-                                    enable_gqa=True)
-        else:
-            lib_call = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
-        e_lib = max_err(lib_call(), mha_ref(q, k, v, q_offset=qo, window=win))
-        bnd, by = k3_bound(1, ghq, ghkv, tq, tk, ghd, qo)
-        k3g[name] = {
-            "ms": device_ms(lambda: flash_attention(q, k, v, q_offset=qo, window=win,
-                                                    bq=tq, bk=tk)),
-            "plain_ms": device_ms(lambda: mha_ref(q, k, v, q_offset=qo, window=win), 5),
-            "bound_ms": bnd, "bound_by": by, "library_ms": device_ms(lib_call)}
-        r = k3g[name]
         plan = dataclasses.asdict(k3_plan((ghq, ghkv, ghd), tq, tk, qo, win))
-        print(f"flash_attention hd {ghd} {name} (plan {plan}): {r['ms']:.4f} ms, "
-              f"bound {bnd:.6f} ms "
-              f"by {by} ({bnd / r['ms']:.2%} of bound), plain {r['plain_ms']:.4f} ms, "
-              f"library sdpa {r['library_ms']:.4f} ms (max_abs_err vs plain {e_lib:.3e})")
+        k3g[name] = time_k3(f"hd {ghd} {name} (plan {plan})", *k3g_inputs[name][:3],
+                            q_offset=qo, window=win)
+    k3n = {}
+    for (arch, name), (q, k, v, qo, causal) in k3n_inputs.items():
+        k3n[f"{arch} {name}"] = time_k3(
+            f"{arch} {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal}",
+            q, k, v, q_offset=qo, causal=causal)
 
     # -- 7. result lines --------------------------------------------------
     stamp(7)
@@ -1763,7 +2208,8 @@ def main() -> None:
     # K3 also carries recurrentgemma-9b's local layers, at head dim 256
     kernels[2].update(launches_by_path={
         arch: serving[arch]["locality"]["launches"]["flash_attention"]
-        for arch in (QWEN, GRIFFIN)}, shapes_hd256=k3g)
+        for arch in (QWEN, GRIFFIN, QWEN3)}, shapes_hd256=k3g, shapes_new=k3n,
+        plain_long_prefill_vs_k3=long_plain)
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \\
         --requests 12 --replicas 3 --policy locality [--device cpu]
 
-``--arch`` takes every architecture the port builds: qwen2-0.5b,
-qwen2-1.5b, gemma3-1b, rwkv6-3b and recurrentgemma-9b.
+``--arch`` takes all ten architectures of ``repro_torch.configs``
+(``list_archs()``).  As in the reference, the engine prefills the prompt's
+tokens only, so whisper-base's and llama-3.2-vision-90b's cross layers
+attend to their zeroed cross caches.
 
 The port of ``repro.launch.serve``.  Compares router policies on the same
 workload (multi-turn sessions whose follow-ups have cache affinity to the

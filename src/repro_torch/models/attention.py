@@ -1,32 +1,39 @@
-"""Attention: GQA with optional QKV bias, prefill and decode.
+"""Attention: GQA (optional bias / sliding window / cross), prefill and decode.
 
-The port of ``repro.models.attention`` for the "full" and "local"
-(sliding-window) kinds of self-attention.  Two execution paths, one
+The port of ``repro.models.attention``: the "full" and "local"
+(sliding-window) kinds of self-attention and the cross-attention of
+whisper's decoder and the VLM's "cross" layers.  Two execution paths, one
 semantics:
 
-  * the plain versions, ``direct_attention`` (materialised scores, prefill)
-    and ``decode_attention`` (one query against the cache), line for line
-    with the reference; they run on the CPU and, when asked for with
+  * the plain versions, line for line with the reference:
+    ``direct_attention`` (materialised scores, prefill of at most 2048
+    tokens and every cross-attention prefill), ``decode_attention`` (one
+    query against the cache), and past 2048 tokens ``banded_attention``
+    (a "local" layer whose window is at most half the prompt: each query
+    chunk against its own and the previous key chunk) or
+    ``chunked_attention`` (loops over query and key chunks with an online
+    softmax in f32; also MLA's long path, whose values may be narrower than
+    its keys).  They run on the CPU and, when asked for with
     ``use_kernel=False``, on the card;
   * K3, the hand-written Hopper flash attention kernel
-    (``repro_torch.kernels.flash_attention``), which carries both prefill
-    and decode on a CUDA tensor.  For a non-ring cache the reference's
-    decode mask ``slot < pos + 1`` is K3's causal mask at
-    ``q_offset = pos``, and the kernel reads only slots 0..pos.  A "local"
-    layer's prefill passes its window to K3.
+    (``repro_torch.kernels.flash_attention``), which carries prefill at any
+    length, decode and cross-attention on a CUDA tensor.  For a non-ring
+    cache the reference's decode mask ``slot < pos + 1`` is K3's causal
+    mask at ``q_offset = pos``, and the kernel reads only slots 0..pos.  A
+    "local" layer's prefill passes its window to K3.  Cross-attention is
+    K3 with ``causal=False`` over all of the cached keys, at any Tq.
 
 A "local" layer's cache is a ring of ``min(attn_window, max_seq)`` slots:
 position p lives in slot ``p % S``.  Decode writes its slot in place;
 prefill keeps the prompt's last ``min(T, S)`` positions at their slots and
-zeroes the rest, as the reference's rolled write leaves them.
+zeroes the rest, as the reference's rolled write leaves them.  A "cross"
+layer's prefill projects K/V from ``cross_x`` (no rope, no causal mask)
+and caches them as ``xk``/``xv``; its decode reads them.
 
-The reference switches prefill longer than 2048 tokens to
-``chunked_attention``, ``banded_attention`` or ``seq_parallel_attention``;
-the port has no plain version of those yet (ROADMAP B8, E3), so a longer
-prefill needs the kernel path.  Cross-attention is not ported yet (ROADMAP
-B8).
-The reference's ``shard`` constraints are no-ops without mesh rules and
-are dropped.
+The reference's ``seq_parallel_attention`` returns ``None`` without mesh
+rules, and the port has no mesh yet (ROADMAP E3), so a long prefill goes
+straight to the banded or chunked form.  The reference's ``shard``
+constraints are no-ops without mesh rules and are dropped.
 """
 from __future__ import annotations
 
@@ -111,6 +118,83 @@ def direct_attention(q, k, v, mask) -> torch.Tensor:
     return o.reshape(b, tq, h * hd)
 
 
+def chunked_attention(q, k, v, q_offset: int, window: int = 0,
+                      q_chunk: int = 512, k_chunk: int = 1024) -> torch.Tensor:
+    """Flash-style causal attention, a loop over query chunks and, inside
+    it, over key chunks with an online softmax in f32.
+
+    Memory is O(q_chunk * k_chunk) per head instead of O(Tq * Tk).  v may
+    have a different head dim than q/k (MLA).  The reference pads q and k
+    to whole chunks; here the last chunks are short instead, which changes
+    nothing: padded queries are cut from its result and padded keys are
+    masked.  As there, a row whose first key chunks are all masked (a
+    window) gathers weight 1 per masked key until its first visible key
+    arrives, whose ``alpha = exp(NEG_INF - m)`` is exactly 0.
+    """
+    b, tq, h, hd = q.shape
+    tk, kvh, hv = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    scale = hd ** -0.5
+    out = q.new_empty((b, tq, h * hv))
+    for i0 in range(0, tq, q_chunk):
+        qi = q[:, i0:i0 + q_chunk]
+        qc = qi.shape[1]
+        qi = qi.reshape(b, qc, kvh, g, hd) * scale
+        q_pos = q_offset + i0 + torch.arange(qc, device=q.device)
+        m = torch.full((b, kvh, g, qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kvh, g, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kvh, g, qc, hv), dtype=torch.float32, device=q.device)
+        for j0 in range(0, tk, k_chunk):
+            ki, vi = k[:, j0:j0 + k_chunk], v[:, j0:j0 + k_chunk]
+            k_pos = j0 + torch.arange(ki.shape[1], device=q.device)
+            s = _gqa_scores(qi, ki).float()
+            ok = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                ok &= k_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(q.dtype), vi).float()
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-37)
+        out[:, i0:i0 + qc] = o.permute(0, 3, 1, 2, 4).reshape(b, qc, h * hv).to(q.dtype)
+    return out
+
+
+def banded_attention(q, k, v, q_offset: int, window: int) -> torch.Tensor:
+    """Sliding-window causal self-attention computed as a band: each query
+    chunk attends to its own and the previous key chunk only (chunk >=
+    window), so compute is O(T * window) instead of O(T^2).
+
+    k and v hold the same positions as q (``q_offset``..).  The reference
+    pads to whole chunks and gives chunk 0 a zero previous chunk; both are
+    masked there (k_pos >= q_offset, causality), so here they are simply
+    absent."""
+    b, tq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    chunk = max(512, window)
+    scale = hd ** -0.5
+    out = q.new_empty((b, tq, h * hd))
+    for i0 in range(0, tq, chunk):
+        qi = q[:, i0:i0 + chunk]
+        qc = qi.shape[1]
+        j0 = max(0, i0 - chunk)
+        kk, vv = k[:, j0:i0 + qc], v[:, j0:i0 + qc]
+        q_pos = q_offset + i0 + torch.arange(qc, device=q.device)
+        k_pos = q_offset + j0 + torch.arange(kk.shape[1], device=q.device)
+        s = _gqa_scores(qi.reshape(b, qc, kvh, g, hd) * scale, kk).float()
+        ok = (k_pos[None, :] <= q_pos[:, None]) & \
+            (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(ok, s, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(q.dtype)
+        out[:, i0:i0 + qc] = _gqa_out(w, vv).reshape(b, qc, h * hd)
+    return out
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, ring: bool = False,
                      window: int = 0) -> torch.Tensor:
     """One-token decode: q (B,1,H,hd) vs cache (B,S,KV,hd).
@@ -174,18 +258,45 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, new_cache).  ``cache=None`` means train/prefill without
     cache retention; a dict cache triggers the decode path when Tq == 1.
     On a CUDA tensor, with ``use_kernel`` (the default), attention runs in
-    K3; otherwise in the plain versions.  kind: "full" | "local".
+    K3; otherwise in the plain versions.  kind: "full" | "local" (any other
+    kind attends as "full", as in the reference); cross-attention passes
+    ``cross_x`` (no rope, not causal), or a cache holding ``xk``/``xv``.
     """
-    if kind not in ("full", "local"):
-        raise NotImplementedError(
-            f"attention kind {kind!r} is not ported yet: ROADMAP B8")
-    if cross_x is not None or (cache is not None and "xk" in cache):
-        raise NotImplementedError("cross-attention is not ported yet: ROADMAP B8")
     h = num_heads or cfg.num_heads
     kv = num_kv or cfg.num_kv_heads
+    hd = cfg.head_dim
     window = cfg.attn_window if kind == "local" else 0
     theta = cfg.rope_theta if theta is None else theta
     kernel = use_kernel and x.device.type == "cuda"
+
+    if cross_x is not None or (cache is not None and "xk" in cache):
+        if cross_x is None:
+            # decode: cross K/V were cached at prefill
+            k, v = cache["xk"], cache["xv"]
+            q = x @ p["wq"]
+            if "bq" in p:
+                q = q + p["bq"]
+            q = q.reshape(x.shape[0], x.shape[1], h, hd)
+            new_cache = {"xk": k, "xv": v}
+        else:
+            q, k, v = _project_qkv(p, x, cross_x, cfg, h, kv)
+            new_cache = None
+            if cache is not None:
+                if "xk" in cache and cache["xk"].shape == k.shape:
+                    # in place, as every cache write of the port (P7)
+                    cache["xk"].copy_(k)
+                    cache["xv"].copy_(v)
+                    k, v = cache["xk"], cache["xv"]
+                new_cache = {"xk": k, "xv": v}
+        tq = q.shape[1]
+        if kernel:
+            out = _kernel_attention(q, k, v, causal=False, q_offset=0)
+        elif tq == 1:
+            out = decode_attention(q, k, v, k.shape[1])
+        else:
+            mask = torch.zeros((tq, k.shape[1]), dtype=torch.float32, device=x.device)
+            out = direct_attention(q, k, v, mask)
+        return matmul_lowp(out, p["wo"]), new_cache
 
     q, k, v = _project_qkv(p, x, x, cfg, h, kv)
     b, tq = q.shape[:2]
@@ -230,11 +341,12 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         mask = _causal_mask(tq, tq, pos_offset, window, device=x.device) if causal \
             else torch.zeros((tq, tq), dtype=torch.float32, device=x.device)
         out = direct_attention(q, k, v, mask)
+    elif 0 < window <= tq // 2:
+        # causal or not, as in the reference (its seq_parallel_attention,
+        # tried first for a causal prefill, returns None without mesh rules)
+        out = banded_attention(q, k, v, pos_offset, window)
     else:
-        raise NotImplementedError(
-            f"a plain prefill of {tq} > {DIRECT_MAX_T} tokens needs "
-            "chunked_attention, not ported yet (ROADMAP B8); run it on the "
-            "card through K3")
+        out = chunked_attention(q, k, v, pos_offset, window)
 
     new_cache = None
     if cache is not None:

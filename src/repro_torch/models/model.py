@@ -13,11 +13,19 @@ interface, so the serving engine ports line for line:
 ``transformer``).  The model runs eagerly on its device: ``cuda`` unless
 the caller passes ``device="cpu"``, and it raises without a card.  On the
 card attention runs in K3, the RWKV recurrence in K4 and the RG-LRU scan
-in K5 unless ``use_kernel=False`` asks for the plain versions.  Whisper's encoder and the VLM's vision tokens are not ported
-yet (ROADMAP D).
+in K5 unless ``use_kernel=False`` asks for the plain versions.
+
+All ten architectures build.  Whisper's encoder (``_encode``: the stack at
+the encoder's widths, without a causal mask, with sinusoidal positions and
+no rope) turns ``extras["frames"]`` into the decoder's cross-attention
+input, and its decoder adds learned positions (``dec_pos``); the VLM takes
+``extras["vision"]`` (patch embeddings already at the decoder's width) as
+its cross-attention input.  MoE and MLA live in ``models/moe.py`` and
+``models/mla.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -25,22 +33,27 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from .common import (Params, cross_entropy, embed_init, layer_norm,
-                     layer_norm_init, rms_norm, rms_norm_init)
-from .transformer import apply_stack, check_ported, stack_cache_specs, stack_init
+                     layer_norm_init, rms_norm, rms_norm_init,
+                     sinusoidal_positions)
+from .transformer import apply_stack, stack_cache_specs, stack_init
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    e = cfg.encoder
+    return dataclasses.replace(
+        cfg, num_layers=e.num_layers, d_model=e.d_model,
+        num_heads=e.num_heads, num_kv_heads=e.num_heads,
+        head_dim=e.d_model // e.num_heads, d_ff=e.d_ff,
+        pattern=("full",), moe=None, mla=None, vision=None,
+        qkv_bias=False, rope_theta=0.0)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig, max_pos: int = 4096, *,
                  device: str | torch.device | None = None,
                  use_kernel: bool = True):
-        if cfg.encoder is not None or cfg.vision is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder (whisper) and vision (VLM) branches "
-                "are not ported yet: ROADMAP D")
-        for kind in set(cfg.layer_kinds()):
-            check_ported(cfg, kind)
         self.cfg = cfg
         self.max_pos = max_pos
         self.dtype = _DTYPES[cfg.dtype]
@@ -74,7 +87,29 @@ class Model:
         if not cfg.tie_embeddings:
             p["head"] = embed_init(generator, cfg.vocab_padded(), cfg.d_model,
                                    dt).T.contiguous()
+        if cfg.encoder is not None:
+            ecfg = _enc_cfg(cfg)
+            p["encoder"] = {
+                "stack": stack_init(generator, ecfg, dt),
+                "final_norm": (layer_norm_init(ecfg.d_model, dt, generator.device)
+                               if cfg.norm == "layer" else
+                               rms_norm_init(ecfg.d_model, dt, generator.device)),
+            }
+            # whisper's decoder uses learned absolute positions
+            p["dec_pos"] = (torch.randn((self.max_pos, cfg.d_model), generator=generator,
+                                        device=generator.device) * 0.01).to(dt)
         return p
+
+    # -- encoder (whisper) ----------------------------------------------------
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        ecfg = _enc_cfg(self.cfg)
+        pos = sinusoidal_positions(frames.shape[1], ecfg.d_model,
+                                   frames.device).to(frames.dtype)
+        x, _, _ = apply_stack(params["encoder"]["stack"], frames + pos[None], ecfg,
+                              pos_offset=0, causal=False, use_kernel=self.use_kernel)
+        if self.cfg.norm == "layer":
+            return layer_norm(params["encoder"]["final_norm"], x)
+        return rms_norm(params["encoder"]["final_norm"], x)
 
     # -- forward --------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor, *,
@@ -87,9 +122,18 @@ class Model:
         if self._embed_scale is not None:
             x = x * self._embed_scale
 
+        cross_x = None
+        if cfg.encoder is not None:
+            if extras is not None and "frames" in extras:
+                cross_x = self._encode(params, extras["frames"])
+            t = tokens.shape[1]
+            x = x + params["dec_pos"][pos_offset:pos_offset + t][None]
+        elif cfg.vision is not None and extras is not None and "vision" in extras:
+            cross_x = extras["vision"]
+
         x, new_caches, aux = apply_stack(
             params["stack"], x, cfg, pos_offset=pos_offset, caches=caches,
-            use_kernel=self.use_kernel)
+            cross_x=cross_x, use_kernel=self.use_kernel)
 
         if cfg.norm == "rms":
             x = rms_norm(params["final_norm"], x)

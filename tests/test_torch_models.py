@@ -213,10 +213,16 @@ class TestBlocks:
 
     @pytest.mark.parametrize("kind", ["cross"])
     def test_unported_kinds_raise(self, pair, kind):
-        cfg, _, _, _, pp = pair
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-            attention.attention_block(pp["stack"][0]["attn"], torch.zeros(1, 2, cfg.d_model),
-                                      cfg, kind=kind)
+        """Every kind is ported now (name and case kept from before): without
+        ``cross_x`` or a cross cache, a "cross" kind attends to itself as
+        "full" does, and equals the reference's block (1e-5)."""
+        cfg, jm, jp, pm, pp = pair
+        jattn = jax.tree.map(lambda a: a[0], jp["stack"]["groups"][0]["attn"])
+        x = np.random.default_rng(9).standard_normal((1, 6, cfg.d_model)).astype(np.float32)
+        want, _ = jax_attn.attention_block(jattn, jnp.asarray(x), cfg, kind=kind)
+        got, none = attention.attention_block(pp["stack"][0]["attn"], _t(x), cfg, kind=kind)
+        assert none is None
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=0, atol=1e-5)
 
 
 class TestModel:
@@ -290,7 +296,7 @@ class TestModel:
 
 # every registered architecture but the dense ones (qwen2, gemma3-1b),
 # rwkv6-3b (tests/test_torch_rwkv.py) and recurrentgemma-9b
-# (tests/test_torch_rglru.py)
+# (tests/test_torch_rglru.py): the ones ported last (tests/test_torch_archs.py)
 UNPORTED = ["llama-3.2-vision-90b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
             "qwen3-moe-30b-a3b", "whisper-base"]
 GEMMA = "gemma3-1b"
@@ -409,8 +415,21 @@ class TestConverter:
 
     @pytest.mark.parametrize("arch", UNPORTED)
     def test_unported_architectures_raise(self, arch):
+        """Every architecture is ported now (name and cases kept from
+        before): the reference's parameters cross over leaf for leaf, the
+        port's model builds, and its logits equal the reference's (atol
+        2e-4, rtol 1e-3); a stack of the wrong depth is refused."""
         cfg = configs.reduce_config(configs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        jm = jax_build_model(jax_reduce_config(jax_get_config(arch)), max_pos=32)
+        jp = jm.init_params(jax.random.key(2))
+        pp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        for want, got in zip(jax.tree.leaves(jp["stack"]["groups"][0]),
+                             jax.tree.leaves(pp["stack"][0])):
+            np.testing.assert_array_equal(got.numpy(), _np(want[0]))
+        toks = _tokens(cfg, (1, 5), seed=5)
+        want, _, _ = jm.forward(jp, jnp.asarray(toks))
+        got, _, _ = build_model(cfg, max_pos=32, device="cpu").forward(
+            pp, torch.from_numpy(toks))
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-4, rtol=1e-3)
+        with pytest.raises(ValueError, match="groups"):
             params_from_jax({"stack": {"groups": [], "remainder": []}}, cfg, "cpu")
