@@ -9,7 +9,8 @@ failure:
 
 1. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) and print the build time, ``nvcc``'s register,
-   shared-memory and spill report (K4's three kernels and K5 among them,
+   shared-memory and spill report (K4's three kernels, K5 and K3's
+   backward among them,
    every instance of K1 and K2), the tile, ring, occupancy and i chunk of
    the K1 and K2 instances the wrappers launch and the host cost of one
    tensor-map encode, K4's time chunk and K5's stage, and the card's name
@@ -106,7 +107,9 @@ failure:
 5. the same drains on full-width rwkv6-3b in bf16 (32 layers, d 2560, 40
    heads of 64, 3.09 B parameters), with token ids under its 65536 vocab:
    K4 must launch 12 x 32 x 33 = 12672 times per drain and the plain WKV
-   version never; K4 is also held against ``wkv6_ref`` on a decode step
+   version never (the ``locality`` drain and its profile at full depth,
+   the three policies' drains with identical tokens at 8 layers: a cut,
+   printed, as in 5b at 9 of 38 layers and in 5c); K4 is also held against ``wkv6_ref`` on a decode step
    from the state a real prefill left in the cache (first and last layer).
    Its teacher-forced comparison runs on an f32 build of the same model
    (12.4 GB), whose logits carry no bf16 rounding of the residual stream;
@@ -123,11 +126,13 @@ failure:
    freed; the peak device memory is printed), with two planted faults in
    the plain path (the RG-LRU state not carried across decode steps; the
    conv history not carried) that must each exceed the limit;
-5c. the same drains on full-width qwen3-moe-30b-a3b in bf16 (48 layers,
-   d 2048, 32 q / 4 kv heads of 128, 128 experts top-8 of width 768,
-   30.53 B parameters, 61.09 GB), once every earlier model is freed: K3
-   must launch 12 x 48 x 33 = 19008 times per drain and the plain
-   attention never; the peak device memory is printed, and the MoE
+5c. the ``locality`` drain on full-width qwen3-moe-30b-a3b in bf16 (48
+   layers, d 2048, 32 q / 4 kv heads of 128, 128 experts top-8 of width
+   768, 30.53 B parameters, 61.09 GB), timed and profiled, once every
+   earlier model is freed: K3 must launch 12 x 48 x 33 = 19008 times per
+   drain and the plain attention never; the three policies' drains, with
+   identical tokens, at 8 of its 48 layers (a cut, printed, that makes
+   room for phase 7); the peak device memory is printed, and the MoE
    block's device time is split into router and top-k, dispatch, expert
    products and combine (one layer's experts, at a decode step and at
    each prompt length, times the drain's calls).  Its teacher-forced
@@ -170,19 +175,42 @@ failure:
    recurrentgemma-9b's hd-256 prefill and decode shapes beside SDPA, and
    at the new architectures' shapes beside SDPA (without a mask where K3
    runs without one);
-7. print the ``serving`` and ``kernels`` JSON lines, the card's name and
-   power limit, and last the ``{"ok": true, ...}`` line.
+7. training (``train_phase``).  7a: K3's backward kernel
+   (``flash_attention_backward``) against autograd of ``mha_ref`` on f32
+   copies, per element (f32: 1e-4 of the largest |ref|; bf16: 2^-7 |ref|
+   + 2^-8 max |ref|) at qwen2-0.5b's training shape (batch 8 x 1024),
+   qwen3-moe's 32/4 heads of 128, gemma3-1b's window (hd 256), whisper's
+   encoder without a mask and a cross shape, in bf16 and f32; two planted
+   faults (dK from one head of the group, the mask dropped in dQ) must
+   exceed the limit and a repeated call must give the same bits; times
+   beside the plain autograd, SDPA's backward and the bound.  7b: one
+   full-width qwen2-0.5b bf16 train step, kernel path against the plain
+   path from the same params and batch (loss and every leaf's gradient);
+   7c: the same on an f32 build of 4 of its 24 layers, with two planted
+   faults in K3's backward.  7d: ``launch.train.make_trainer`` on
+   full-width qwen2-0.5b, 20 steps of 8 x 1024 from the synthetic corpus
+   (seed 0): ms a step, tokens per second, the share of the 6 N tokens
+   bound, K3's forward and backward launches a step (counts zeroed before
+   the run), peak memory, one profiled step's idle share; the loss must
+   fall.  7e: with deterministic algorithms on, 12 steps with a checkpoint
+   every 6, then a second trainer resumed from step 6 must give the same
+   losses, params and optimizer state bit for bit; the checkpoint's bytes
+   and save and restore times;
+8. print the ``serving``, ``training`` and ``kernels`` JSON lines, the
+   card's name and power limit, and last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
 import gc
 import itertools
 import json
+import os
 import pathlib
 import socket
 import subprocess
@@ -190,8 +218,12 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# phase 7e's bit-for-bit resume runs under torch.use_deterministic_algorithms,
+# which asks cuBLAS for a fixed workspace: it must be set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -330,6 +362,12 @@ OTHER_ATOL = {MINICPM: 0.25, WHISPER: 0.25, PHI: 0.25, VLM: 0.25}
 # llama-3.2-vision-90b (181 GB whole) at the depth given here
 QWEN3_F32_LAYERS = 8
 OTHER_DEPTH = {MINICPM: None, WHISPER: None, PHI: 8, VLM: 5}
+# The round_robin and single_queue drains of these configurations run at
+# this depth (with a locality drain beside them, for token identity across
+# policies); their locality drain and its profile stay at full depth.  Cuts
+# that buy phase 7 its time: on an H100 80GB HBM3 the full-depth drains took
+# 40-42 s each (qwen3-moe) and 25-32 s (rwkv6-3b, recurrentgemma-9b)
+POLICY_DEPTH = {RWKV: 8, GRIFFIN: 9, QWEN3: 8}
 OTHER_PREFILL, OTHER_DECODE = 128, 8
 VLM_GATES = (0.5, -0.7)       # gate_x, gate_m: non-zero, so the cross path counts
 # K3 at the new architectures' shapes: (name, Hq, Hkv, hd, Tq, Tk, q_offset,
@@ -1100,6 +1138,426 @@ def other_archs(dev, build, counts, zero_counts, limits) -> dict:
     return res
 
 
+# -- 7. training ------------------------------------------------------------
+# K3's backward against autograd of mha_ref on f32 copies of the same
+# inputs, in bf16 and f32: (B, Hq, Hkv, Tq, Tk, hd, causal, window).  The
+# training shape (qwen2-0.5b, batch 8 x 1024), qwen3-moe's 32/4 heads of 128,
+# gemma3-1b's local layers (4/1 heads of 256, window 512), whisper's encoder
+# (no mask) and a cross shape (Tq 128 over 1536 frames).
+BWD_SHAPES = {"qwen2_train": (8, 14, 2, 1024, 1024, 64, True, 0),
+              "qwen3": (1, 32, 4, 1024, 1024, 128, True, 0),
+              "gemma3_window": (1, 4, 1, 1024, 1024, 256, True, 512),
+              "whisper_encoder": (1, 8, 8, 1536, 1536, 64, False, 0),
+              "cross": (1, 8, 8, 128, 1536, 64, False, 0)}
+BWD_HEADLINE = "qwen2_train"
+# Per element, |got - ref| <= limit.  f32: 1e-4 of the largest |ref| (the
+# same f32 math as the plain autograd, sums in other orders).  bf16: 2^-7
+# |ref| + 2^-8 max |ref| (the gradient is rounded once to bf16, at most
+# 2^-8 |ref| off).  Fixed before the first run on the card.
+BWD_F32_REL = 1e-4
+# one training step, kernel path against the plain path (use_kernel=False)
+# from the same params and batch: each leaf's max |g_kernel - g_plain| over
+# the leaf's max |g_plain|, and the loss's difference.  bf16 at full width:
+# the plain attention rounds its softmax weights to bf16 and K3 does not (as
+# in serving), so the gradients differ by a few bf16 ulps through 24 layers.
+# f32 at TRAIN_F32_LAYERS layers: only the order of f32 sums differs; two
+# planted faults in K3's backward must each exceed the f32 limit.
+# Measured on an H100 80GB HBM3 at 700 W: bf16 worst leaf 0.0184 (layer 1's
+# bk; median leaf 0.0062), loss 5.5e-5 apart; f32 at 4 layers worst leaf
+# 2.5e-6, loss 9.5e-7 apart.  The limits sit 2.7x (bf16 leaf), 18x (bf16
+# loss), 40x and 10x above those readings.
+GRAD_LIMITS = {"bfloat16": 0.05, "float32": 1e-4}
+LOSS_LIMITS = {"bfloat16": 1e-3, "float32": 1e-5}
+TRAIN_F32_LAYERS = 4
+# the trainer at full width, through repro_torch.launch.train's API: the
+# synthetic corpus from seed 0, global batch 8 x 1024, 20 steps; then the
+# resume check: 12 steps with a checkpoint every 6, resumed from step 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 20
+RESUME_STEPS, RESUME_EVERY = 12, 6
+
+
+def bwd_bound(b, hq, hkv, tq, tk, hd, causal, window, elem_bytes):
+    """Least time of one backward call: five products of the visible (query
+    head, query, key) triples by hd (10 hd flops each) over the bf16 or f32
+    peak, or q, k, v, dO read once and dq, dk, dv written once over HBM."""
+    if causal:
+        qpos = np.arange(tq)[:, None]
+        key = np.arange(tk)[None, :]
+        ok = key <= qpos
+        if window > 0:
+            ok &= key > qpos - window
+        pairs = int(ok.sum())
+    else:
+        pairs = tq * tk
+    flops = 10 * b * hq * hd * pairs
+    nbytes = elem_bytes * hd * b * 2 * (hq * tq + 2 * hkv * tk)
+    peak = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
+    return bound(nbytes, flops, peak)
+
+
+def bwd_limit_share(got, want, dtype) -> float:
+    """The largest |got - want| over its limit (see BWD_F32_REL)."""
+    if not bool(got.isfinite().all()):
+        fail("non-finite values in K3's backward")
+    mx = float(want.abs().max())
+    lim = (BWD_F32_REL * mx if dtype == torch.float32
+           else 2 ** -7 * want.abs() + 2 ** -8 * mx)
+    return float(((got.float() - want).abs() / lim).max())
+
+
+def train_phase(dev, card) -> tuple[dict, dict]:
+    """Phase 7 (a-e): K3's backward, the train step at full width, the
+    trainer and its resume.  Returns (the training results, K3's backward
+    entry of the kernels line)."""
+    import shutil
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.models.model import build_model
+
+    def views(gen, b, h, t, hd, dtype):
+        """(B, H, T, hd) views of (B, T, H, hd) tensors, as the model passes."""
+        return torch.randn((b, t, h, hd), generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+    def plain(q, k, v, do, **mask):
+        leaves = [x.float().detach().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(mha_ref(*leaves, **mask), leaves, do.float())
+
+    # -- 7a. K3's backward against the plain autograd ----------------------
+    stamp("7a")
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes, worst, errs, head_inputs = {}, 0.0, 0.0, None
+    for name, (b, hq, hkv, tq, tk, hd, causal, window) in BWD_SHAPES.items():
+        shapes[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (views(gen, b, h, t, hd, dtype)
+                           for h, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq)))
+            mask = dict(causal=causal, window=window)
+            got = k3.flash_attention_backward(q, k, v, do, **mask)
+            want = plain(q, k, v, do, **mask)
+            share = {g: bwd_limit_share(x, w, dtype) for g, x, w in zip(("dq", "dk", "dv"), got, want)}
+            err = max(max_err(x, w) for x, w in zip(got, want))
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"K3 backward {name} {tag} q {tuple(q.shape)} kv {tuple(k.shape)} "
+                  f"causal={causal} window={window}: max_abs_err {err:.3e}, limit share "
+                  + ", ".join(f"{g} {x:.4f}" for g, x in share.items()))
+            shapes[name][tag] = {"max_abs_err": err, "limit_share": share}
+            worst = max(worst, *share.values())
+            if dtype == torch.bfloat16:
+                errs = max(errs, err)
+            if name == BWD_HEADLINE:
+                if dtype == torch.float32:
+                    # the planted faults: dK and dV from one head of each
+                    # group, and the causal mask dropped in dQ
+                    grp = hq // hkv
+                    leaves = [x.detach().requires_grad_(True) for x in
+                              (q, k.repeat_interleave(grp, 1), v.repeat_interleave(grp, 1))]
+                    gk = torch.autograd.grad(mha_ref(*leaves, **mask), leaves[1], do)[0]
+                    faults = {"dK from one head of the group":
+                              bwd_limit_share(got[1], gk[:, ::grp], dtype),
+                              "mask dropped in dQ":
+                              bwd_limit_share(got[0], plain(q, k, v, do, causal=False)[0], dtype)}
+                    print("K3 backward planted faults (share of the f32 limit, must exceed 1): "
+                          + ", ".join(f"{f} {x:.1f}" for f, x in faults.items()))
+                    if min(faults.values()) <= 1.0:
+                        fail(f"a planted fault in K3's backward stays within the limit: {faults}")
+                    shapes[name]["planted_faults"] = faults
+                else:
+                    head_inputs = (q, k, v, do, mask)
+            del got, want
+    torch.cuda.synchronize()
+    if worst > 1.0:
+        fail(f"K3's backward disagrees with the plain autograd: {worst:.3f} of its limit")
+    q, k, v, do, mask = head_inputs
+    a = k3.flash_attention_backward(q, k, v, do, **mask)
+    again = k3.flash_attention_backward(q, k, v, do, **mask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, again)):
+        fail("K3's backward gave other bits when repeated")
+    print(f"K3 backward {BWD_HEADLINE} bf16 repeated: identical bits")
+    del a, again
+    # times at every shape in bf16: the kernel, the plain autograd's
+    # backward alone, SDPA's forward + backward less its forward
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    for name, (b, hq, hkv, tq, tk, hd, causal, window) in BWD_SHAPES.items():
+        q, k, v, do = (views(gen, b, h, t, hd, torch.bfloat16)
+                       for h, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq)))
+        mask = dict(causal=causal, window=window)
+        ms = time_ms(lambda: k3.flash_attention_backward(q, k, v, do, **mask), 5)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = mha_ref(*leaves, **mask)
+        plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
+        del out
+        lib_ms = None
+        if window == 0:      # SDPA's causal mask is K3's where no window binds
+            def fwd():
+                return sdpa(*leaves, is_causal=causal, enable_gqa=hq != hkv)
+
+            def fwd_bwd():
+                torch.autograd.grad(fwd(), leaves, do)
+            with torch.no_grad():
+                f_ms = time_ms(fwd, 5)
+            lib_ms = time_ms(fwd_bwd, 5) - f_ms
+        bnd = bwd_bound(b, hq, hkv, tq, tk, hd, causal, window, 2)
+        shapes[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bnd[0], bound_by=bnd[1])
+        print(f"K3 backward {name} bf16: {ms:.4f} ms (plain autograd {plain_ms:.4f} ms, "
+              f"SDPA backward {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.1%} of it) [{card}]")
+        del q, k, v, do, leaves
+    free_device_memory()
+
+    # -- 7b, 7c. one train step: the kernel path against the plain path ----
+    cfg = get_config(QWEN)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def loss_and_grads(model, params, batch):
+        flat = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
+        loss, _ = model.loss_fn(_tree.unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(flat, grads)]
+
+    it = make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {name: torch.as_tensor(x, device=dev) for name, x in next(it).items()}
+
+    def compare(label, tcfg, faults=None):
+        kmodel, pmodel = build_model(tcfg), build_model(tcfg, use_kernel=False)
+        params = kmodel.init_params(torch.Generator(device=dev).manual_seed(0))
+        paths = [p for p, _ in _tree.flatten_with_path(params)]
+        k3.flash_attention.launches = k3.flash_attention_backward.launches = 0
+        lk, gk = loss_and_grads(kmodel, params, batch)
+        launched = (k3.flash_attention.launches, k3.flash_attention_backward.launches)
+        lp, gp = loss_and_grads(pmodel, params, batch)
+        torch.cuda.synchronize()
+
+        def gaps(grads):
+            return {path: float((a.float() - b.float()).abs().max()) /
+                    max(float(b.float().abs().max()), 1e-30)
+                    for path, a, b in zip(paths, grads, gp)}
+
+        g = gaps(gk)
+        worst_leaf = max(g, key=g.get)
+        limit, loss_limit = GRAD_LIMITS[tcfg.dtype], LOSS_LIMITS[tcfg.dtype]
+        print(f"{label}: loss kernel {lk:.6f} plain {lp:.6f} (gap {abs(lk - lp):.3e}, "
+              f"limit {loss_limit}); K3 launches forward {launched[0]}, backward "
+              f"{launched[1]}; worst leaf gradient gap {g[worst_leaf]:.3e} of its max "
+              f"({worst_leaf}; limit {limit}); median leaf {float(np.median(list(g.values()))):.3e}")
+        want = (tcfg.num_layers * (2 if tcfg.remat else 1), tcfg.num_layers)
+        if launched != want:
+            fail(f"{label}: K3 launches {launched}, want {want} (forward, backward)")
+        if abs(lk - lp) > loss_limit or g[worst_leaf] > limit:
+            fail(f"{label}: the kernel path's loss or gradient is off the plain path's")
+        for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+            for layer in range(tcfg.num_layers):
+                x = gk[paths.index(f"stack/{layer}/attn/{name}")]
+                if not float(x.float().abs().max()) > 0:
+                    fail(f"{label}: no gradient reached layer {layer}'s {name}")
+        out = {"loss_kernel": lk, "loss_plain": lp, "worst_leaf": worst_leaf,
+               "worst_leaf_gap": g[worst_leaf], "limit": limit, "launches": launched}
+        if faults:
+            real = k3.flash_attention_backward
+            out["planted_faults"] = {}
+            for fname, fn in faults.items():
+                k3.flash_attention_backward = fn
+                try:
+                    fg = gaps(loss_and_grads(kmodel, params, batch)[1])
+                finally:
+                    k3.flash_attention_backward = real
+                fworst = max(fg.values())
+                print(f"{label}, planted fault '{fname}': worst leaf gradient gap "
+                      f"{fworst:.3e} ({fworst / limit:.1f}x the limit)")
+                if fworst <= limit:
+                    fail(f"{label}: planted fault '{fname}' stays within the limit")
+                out["planted_faults"][fname] = fworst
+        del kmodel, pmodel, params, gk, gp
+        free_device_memory()
+        return out
+
+    stamp("7b")
+    results = {"backward_shapes": shapes}
+    results["step_bf16"] = compare(f"{QWEN} bf16 train step, full width", cfg)
+
+    stamp("7c")
+    real_bwd = k3.flash_attention_backward
+
+    def one_head(q, k, v, dout, **mask):
+        grp = q.shape[1] // k.shape[1]
+        dq = real_bwd(q, k, v, dout, **mask)[0]
+        _, dk, dv = real_bwd(q[:, ::grp], k, v, dout[:, ::grp], **mask)
+        return dq, dk, dv
+
+    def no_mask(q, k, v, dout, **mask):
+        return real_bwd(q, k, v, dout, causal=False)
+
+    # the wrapper counts its calls on the module's name, which the faults
+    # take over while they run
+    one_head.launches = no_mask.launches = 0
+
+    f32cfg = dataclasses.replace(cfg, dtype="float32", num_layers=TRAIN_F32_LAYERS)
+    print(f"{QWEN} f32 train step: cut to {TRAIN_F32_LAYERS} of {cfg.num_layers} layers "
+          f"at full width")
+    results["step_f32"] = compare(
+        f"{QWEN} f32 train step, {TRAIN_F32_LAYERS} layers", f32cfg,
+        {"dK and dV from one head of each group": one_head,
+         "causal mask dropped in the backward": no_mask})
+
+    # -- 7d. the trainer at full width --------------------------------------
+    stamp("7d")
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer(QWEN, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           seed=0, device="cuda", log_fn=logs.append)
+    step_fn, times = trainer.step_fn, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.step_fn = timed
+    k3.flash_attention.launches = k3.flash_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    run = trainer.run(seed=0)
+    wall = time.perf_counter() - t0
+    launched = (k3.flash_attention.launches, k3.flash_attention_backward.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    n_params = sum(x.numel() for x in _tree.leaves(run["params"]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = float(np.mean(times[2:]))
+    flops_bound_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    per_step = (launched[0] / TRAIN_STEPS, launched[1] / TRAIN_STEPS)
+    print("\n".join(logs))
+    print(f"{QWEN} trainer: {n_params} params, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {wall:.2f} s (init included); ms a step (synchronised "
+          f"host clock) first {times[0]:.1f}, steady mean {steady:.2f} (steps 3-"
+          f"{TRAIN_STEPS}), {tokens / steady * 1e3:.0f} tokens/s; 6 N tokens bound "
+          f"{flops_bound_ms:.2f} ms, {flops_bound_ms / steady:.1%} of it; K3 launches a "
+          f"step: forward {per_step[0]:g}, backward {per_step[1]:g} (3 kernels each); "
+          f"peak device memory {peak} B ({peak / 1e9:.2f} GB) [{card}]")
+    print(f"{QWEN} trainer losses: {[round(x, 4) for x in losses]}")
+    want = (TRAIN_STEPS * cfg.num_layers * (2 if cfg.remat else 1),
+            TRAIN_STEPS * cfg.num_layers)
+    if launched != want:
+        fail(f"trainer: K3 launches {launched}, want {want} (forward, backward)")
+    if not all(np.isfinite(losses)) or not np.mean(losses[-5:]) < losses[0]:
+        fail(f"trainer: the loss did not fall: {losses}")
+    # one more step under the profiler: the device's idle share
+    from torch.profiler import ProfilerActivity, profile
+    batch = {name: torch.as_tensor(x, device=dev) for name, x in next(
+        make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=1)).items()}
+    params, opt = run["params"], run["opt_state"]
+    del run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm_profiler()
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    spans = drop_warmup(device_spans(prof))
+    busy = busy_ms(spans)
+    by_family = {fam: sum(e - s for n, s, e in spans if fam in n) / 1e6
+                 for fam in ("attn_bwd_prep", "attn_bwd_dq", "attn_bwd_dkdv",
+                             "flash_attention_kernel")}
+    print(f"{QWEN} profiled train step: wall {prof_ms:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / prof_ms:.4f}; K3 device ms: " + ", ".join(
+              f"{f} {x:.2f}" for f, x in by_family.items()))
+    print("device time by function over the profiled step:")
+    print("\n".join(top_kernels(spans, 10)))
+    del params, opt, prof, spans
+    free_device_memory()
+    results["trainer"] = {
+        "params": n_params, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": losses, "ms_per_step": times, "steady_ms_per_step": steady,
+        "tokens_per_s": tokens / steady * 1e3, "bound_ms_6NT": flops_bound_ms,
+        "bound_share": flops_bound_ms / steady, "launches": launched,
+        "launches_per_step": per_step, "peak_bytes": peak,
+        "profiled_step": {"wall_ms": prof_ms, "busy_ms": busy,
+                          "idle_share": 1 - busy / prof_ms, "k3_device_ms": by_family}}
+
+    # -- 7e. resume, bit for bit --------------------------------------------
+    stamp("7e")
+    torch.use_deterministic_algorithms(True)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        print(f"resume: deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG="
+              f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; checkpoints in {ckpt} "
+              f"({shutil.disk_usage(ckpt).free / 1e9:.1f} GB free)")
+
+        def trainer_for(**kw):
+            t = make_trainer(QWEN, steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             seed=0, device="cuda", ckpt=ckpt, ckpt_every=RESUME_EVERY,
+                             log_fn=lambda line: None, **kw)
+            saves, restores = [], []
+            save, restore = t.ckpt.save, t._restore_latest
+
+            def timed_save(step, state, blocking=False):
+                t0 = time.perf_counter()
+                save(step, state, blocking=blocking)
+                saves.append((step, blocking, time.perf_counter() - t0))
+
+            def timed_restore(*args):
+                t0 = time.perf_counter()
+                out = restore(*args)
+                restores.append(time.perf_counter() - t0)
+                return out
+
+            t.ckpt.save, t._restore_latest = timed_save, timed_restore
+            return t, saves, restores
+
+        t1, saves1, _ = trainer_for()
+        straight = t1.run(seed=0)
+        step_dir = pathlib.Path(ckpt) / f"step_{RESUME_EVERY:08d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        shutil.rmtree(pathlib.Path(ckpt) / f"step_{RESUME_STEPS:08d}")   # the "crash"
+        t2, saves2, restores2 = trainer_for()
+        resumed = t2.run(seed=0)
+        same_losses = resumed["losses"] == straight["losses"][RESUME_EVERY:]
+        pairs = list(zip(_tree.leaves({"p": straight["params"], "o": straight["opt_state"]}),
+                         _tree.leaves({"p": resumed["params"], "o": resumed["opt_state"]})))
+        unequal = sum(int((a != b).sum()) for a, b in pairs)
+        print(f"resume: {RESUME_STEPS} steps straight vs resumed from step {RESUME_EVERY}: "
+              f"losses {'identical' if same_losses else 'DIFFERENT'} "
+              f"({[round(x, 6) for x in resumed['losses']]}), {unequal} unequal elements "
+              f"in {len(pairs)} params and optimizer tensors")
+        print(f"resume: a checkpoint of step {RESUME_EVERY} is {nbytes} B on disk "
+              f"({len(list(step_dir.iterdir())) - 1} .npy files); saves "
+              + ", ".join(f"step {s} {'blocking' if b else 'staged'} {x:.2f} s"
+                          for s, b, x in saves1 + saves2)
+              + f"; restore {restores2[0]:.2f} s")
+        if not same_losses or unequal:
+            fail("resume: the resumed run differs from the uninterrupted one")
+        results["resume"] = {"identical": True, "checkpoint_bytes": nbytes,
+                             "saves_s": saves1 + saves2, "restore_s": restores2[0],
+                             "losses": resumed["losses"]}
+        del straight, resumed, pairs
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        free_device_memory()
+
+    head = shapes[BWD_HEADLINE]
+    kernel = {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+        "path": f"Trainer.run ({QWEN}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ})",
+        "launches": launched[1], "max_abs_err": errs, "limit_share": worst,
+        "shape": BWD_HEADLINE, "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"], "shapes": shapes}
+    return results, kernel
+
+
 T_START = time.perf_counter()
 
 
@@ -1227,6 +1685,13 @@ def main() -> None:
             + (f" ({k3_lib.flash_attention_blocks_per_sm(rows, hd)} blocks per SM)"
                if dtype else "") for hd in k3_kernel.HEAD_DIMS))
 
+    bwd_smem = []
+    for hd in k3_kernel.HEAD_DIMS:
+        smem = (ctypes.c_int * 3)()
+        if k3_kernel._bwd_lib().flash_attention_bwd_smem_bytes(hd, smem) == 0:
+            bwd_smem.append(f"hd {hd}: {smem[0]}/{smem[1]}/{smem[2]} B")
+    print("flash_attention backward: dynamic shared memory per block (prep/dq/dkdv): "
+          + ", ".join(bwd_smem))
     for two_step, name in ((False, "jacobi_sweep (K1)"), (True, "jacobi_two_step (K2)")):
         g = k12_kernel.geometry(two_step)
         print(f"{name}: instance {g['variant']} of {k12_kernel.variants(two_step)}, tile "
@@ -1642,12 +2107,13 @@ def main() -> None:
               f"built in {time.perf_counter() - t0:.2f} s")
         return model, params
 
-    def serve(arch, cfg):
-        """Build ``arch`` at full width, drain the workload under every
-        policy (checking that each drain launches each kernel of the path
-        once per layer of its kind per prefill and decode step, and no other
-        kernel or plain version) and profile one more drain.  Returns
-        (model, params, metrics)."""
+    def serve(arch, cfg, policies=POLICIES, profiled=True):
+        """Build ``arch`` at full width, drain the workload under each of
+        ``policies`` (checking that each drain launches each kernel of the
+        path once per layer of its kind per prefill and decode step, and no
+        other kernel or plain version, and that the policies' tokens are
+        identical) and, with ``profiled``, profile one more ``locality``
+        drain.  Returns (model, params, metrics, the first policy's tokens)."""
         model, params = build(arch, cfg)
 
         def new_engine(policy):
@@ -1669,7 +2135,7 @@ def main() -> None:
         Replica(model, params, MAX_SEQ).run(warm)
         torch.cuda.synchronize()
         outs, metrics = {}, {}
-        for policy in POLICIES:
+        for policy in policies:
             engine = new_engine(policy)
             prefill_t, decode_t = Timed(model.prefill), Timed(model.decode_step)
             for rep in engine.replicas:
@@ -1701,10 +2167,15 @@ def main() -> None:
                     not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values()
                             for t in o):
                 fail(f"{arch} {policy}: served {len(done)} requests, {generated} tokens")
-        if not outs["locality"] == outs["round_robin"] == outs["single_queue"]:
+        first = outs[policies[0]]
+        if any(outs[p] != first for p in policies):
             fail(f"{arch}: the policies generated different tokens")
-        print(f"{arch}: tokens identical across {POLICIES}; request 0: "
-              f"{list(outs['locality'][0])}")
+        print(f"{arch}: tokens identical across {policies}; request 0: "
+              f"{list(first[0])}")
+        if not profiled:
+            result = {p: {k: v for k, v in m.items() if k != "stats"}
+                      | {"stats": vars(m["stats"])} for p, m in metrics.items()}
+            return model, params, result, first
 
         from torch.profiler import ProfilerActivity, profile
         # a device sleep of one cycle before and after each prefill marks the
@@ -1778,7 +2249,7 @@ def main() -> None:
         result = {p: {k: v for k, v in m.items() if k != "stats"}
                   | {"stats": vars(m["stats"])} for p, m in metrics.items()}
         result.update(idle_share=idle_share, kernels_in_drain=in_drain)
-        return model, params, result, outs["locality"]
+        return model, params, result, first
 
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1793,6 +2264,21 @@ def main() -> None:
         fail("the profiler recorded no device sleep in 3 sessions")
     marker_name = names[-1]                     # the prefill markers' kernel
     print(f"profiler: prefill markers are {marker_name}")
+
+    def policies_cut(arch, cfg):
+        """The three policies' drains of ``arch`` at POLICY_DEPTH[arch]
+        layers, whose tokens must be identical (a cut, printed)."""
+        cut = dataclasses.replace(cfg, num_layers=POLICY_DEPTH[arch])
+        model, params, metrics, _ = serve(arch, cut, profiled=False)
+        del model, params
+        free_device_memory()
+        return metrics | {"layers": POLICY_DEPTH[arch]}
+
+    def cut_line(arch, cfg):
+        print(f"cut: {arch} round_robin and single_queue drains at "
+              f"{POLICY_DEPTH[arch]} of {cfg.num_layers} layers (token identity across "
+              f"{POLICIES} checked there); the locality drain and its profile at full "
+              f"depth")
 
     def teacher_forced(arch, cfg, model, params, faults=None):
         """The kernel path against the plain path (``use_kernel=False``) on
@@ -1870,7 +2356,8 @@ def main() -> None:
     free_device_memory()
 
     stamp(5)
-    model, params, serving[RWKV], _ = serve(RWKV, rcfg)
+    cut_line(RWKV, rcfg)
+    model, params, serving[RWKV], _ = serve(RWKV, rcfg, policies=("locality",))
     # K4 on a decode step from the state a real prefill left in the cache
     caches = model.init_cache(1, MAX_SEQ)
     toks = torch.as_tensor(requests(rcfg, Request)[0].tokens, device=dev)[None]
@@ -1887,6 +2374,7 @@ def main() -> None:
         fail(f"K4 disagrees with wkv6_ref: an error used {k4_worst:.3f} of its limit")
     del model, params, caches
     free_device_memory()
+    serving[RWKV]["policies_cut_depth"] = policies_cut(RWKV, rcfg)
     # the teacher-forced comparison on an f32 build, with two planted faults
     f32cfg = dataclasses.replace(rcfg, dtype="float32")
     model, params = build(RWKV, f32cfg)
@@ -1900,7 +2388,8 @@ def main() -> None:
     free_device_memory()
 
     stamp("5b")
-    model, params, serving[GRIFFIN], _ = serve(GRIFFIN, gcfg)
+    cut_line(GRIFFIN, gcfg)
+    model, params, serving[GRIFFIN], _ = serve(GRIFFIN, gcfg, policies=("locality",))
     # K5 on a decode step from the state a real prefill left in the cache
     toks = torch.as_tensor(requests(gcfg, Request)[0].tokens, device=dev)[None]
     _, caches = model.prefill(params, {"tokens": toks}, model.init_cache(1, MAX_SEQ))
@@ -1917,6 +2406,7 @@ def main() -> None:
         fail(f"K5 differs from rglru_scan_ref in {k5_unequal} elements")
     del model, params, caches
     free_device_memory()
+    serving[GRIFFIN]["policies_cut_depth"] = policies_cut(GRIFFIN, gcfg)
     # the teacher-forced comparison on an f32 build, with two planted faults,
     # once every earlier model is freed
     torch.cuda.reset_peak_memory_stats()
@@ -1938,8 +2428,9 @@ def main() -> None:
     stamp("5c")
     # qwen3-moe-30b-a3b whole in bf16, once every earlier model is freed
     qcfg = get_config(QWEN3)
+    cut_line(QWEN3, qcfg)
     torch.cuda.reset_peak_memory_stats()
-    model, params, serving[QWEN3], _ = serve(QWEN3, qcfg)
+    model, params, serving[QWEN3], _ = serve(QWEN3, qcfg, policies=("locality",))
     peak = torch.cuda.max_memory_allocated()
     print(f"{QWEN3} bf16, served whole: peak device memory {peak} B ({peak / 1e9:.2f} GB)")
     serving[QWEN3]["peak_bytes"] = peak
@@ -1947,6 +2438,7 @@ def main() -> None:
         params, qcfg, dev, sorted(len(r.tokens) for r in requests(qcfg, Request)), gen)
     del model, params
     free_device_memory()
+    serving[QWEN3]["policies_cut_depth"] = policies_cut(QWEN3, qcfg)
     # the teacher-forced comparison on an f32 build of its first layers, with
     # two planted faults in the MoE block of the plain path
     f32cfg = dataclasses.replace(qcfg, dtype="float32", num_layers=QWEN3_F32_LAYERS)
@@ -2163,8 +2655,11 @@ def main() -> None:
             f"{arch} {name} q {tuple(q.shape)} kv {tuple(k.shape)} causal={causal}",
             q, k, v, q_offset=qo, causal=causal)
 
-    # -- 7. result lines --------------------------------------------------
-    stamp(7)
+    # -- 7. training: K3's backward, the train step, the trainer, resume --
+    training, k3_backward = train_phase(dev, card)
+
+    # -- 8. result lines --------------------------------------------------
+    stamp(8)
     kernels = []
     for name, replaces, path, path_launches in (
             ("jacobi_sweep", "src/repro/kernels/jacobi/kernel.py:32",
@@ -2210,7 +2705,9 @@ def main() -> None:
         arch: serving[arch]["locality"]["launches"]["flash_attention"]
         for arch in (QWEN, GRIFFIN, QWEN3)}, shapes_hd256=k3g, shapes_new=k3n,
         plain_long_prefill_vs_k3=long_plain)
+    kernels.append(k3_backward)
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

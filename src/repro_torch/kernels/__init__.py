@@ -5,3 +5,18 @@ wrapper, and ``ops.py`` (the public entry points that dispatch a CUDA
 tensor to the kernel and a CPU tensor to the plain version).  The CUDA
 sources live in ``repro_torch/csrc`` and are built by ``_build``.
 """
+import torch
+
+
+def refuse_grad(kernel: str, item: str, *xs) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an input in ``xs``
+    requires grad: ``kernel`` has no backward on the card yet (ROADMAP
+    ``item``), and its result, written through ``ctypes``, would carry no
+    autograd history, so every gradient through it would be silently
+    missing."""
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in xs):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel on the card (ROADMAP {item}): run it "
+            f"under torch.no_grad() or on inputs that do not require grad, or "
+            f"take the plain path (use_kernel=False), which autograd differentiates")

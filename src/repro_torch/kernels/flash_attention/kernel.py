@@ -15,6 +15,15 @@ the SIMT cores, no split.
 ``bq``/``bk`` keep the reference's contract — sequence lengths they do not
 divide raise ``ValueError`` — but do not set the CUDA tiling, which is
 fixed by the kernel and :func:`split_plan`.
+
+The gradient: :class:`FlashAttentionFn` is K3 as a
+``torch.autograd.Function``.  Its forward is the launch above, unchanged;
+its backward is :func:`flash_attention_backward`, three hand-written
+kernels in ``repro_torch/csrc/flash_attention_bwd.cu`` (log-sum-exp and
+rowsum(dO o O), then dQ, then dK and dV; f32 arithmetic, no atomics, so
+the same bits on every call).  The model enters the Function only when
+grad mode is on and an input requires grad, so serving launches K3
+exactly as before.
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import torch
 from .. import _build
 from .ref import mha_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128, 256)     # the compiled head widths (forward and backward)
 MAX_ROWS = 32                     # (query head, position) rows of an f32 block
 DECODE_ROWS, PREFILL_ROWS = 16, 64     # rows of a bf16 block, by variant
 MAX_SPLITS = 64                   # key-range chunks per row tile
@@ -265,3 +274,94 @@ def run_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
         plan.tiles_per_chunk, None if ws is None else ws.data_ptr(),
         None if tickets is None else tickets.data_ptr(), stream)
     _build.check(lib, err, "flash_attention_kernel launch")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_attention_bwd_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, p]
+    lib.flash_attention_bwd_launch.restype = i
+    lib.flash_attention_bwd_smem_bytes.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_bwd_smem_bytes.restype = i
+    return lib
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` for the gradient
+    ``dout`` of its result, each in its input's dtype and shape.  The
+    kernels recompute what they need of the forward (each row's log-sum-exp
+    and rowsum(dO o O)) from q, k, v and dout, so the result is not needed.
+
+    A CUDA tensor launches the backward kernels (head dims ``HEAD_DIMS``,
+    ``ValueError`` otherwise); a CPU tensor takes the plain version,
+    autograd through ``mha_ref``."""
+    _check(q, k, v)
+    b, hq, tq, hd = q.shape
+    if dout.shape != q.shape:
+        raise ValueError(f"dout must be q's shape {tuple(q.shape)}; got "
+                         f"{tuple(dout.shape)}")
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = mha_ref(*leaves, causal=causal, window=window, q_offset=q_offset)
+            return torch.autograd.grad(o, leaves, dout)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: K3's backward is compiled for {HEAD_DIMS}")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("flash_attention_backward takes tensors whose last dim "
+                         "is contiguous")
+    if max(k.shape[2], tq, abs(q_offset), window) >= 2 ** 31 or b > 65535 or hq > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} exceeds the "
+                         f"kernels' int32 positions or grid")
+    dout = dout.to(q.dtype)
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    hkv, tk = k.shape[1], k.shape[2]
+    xs = (q, k, v, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(*(x.stride(i) for x in xs for i in range(3)))
+    lib = _bwd_lib()
+    err = lib.flash_attention_bwd_launch(
+        *(x.data_ptr() for x in xs), lse.data_ptr(), delta.data_ptr(),
+        b, hq, hkv, tq, tk, hd, strides, int(causal), int(window), int(q_offset),
+        hd ** -0.5, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention backward launch")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 with its gradient: ``FlashAttentionFn.apply(q, k, v, causal,
+    window, q_offset)`` is ``flash_attention`` (one K3 launch) forward and
+    ``flash_attention_backward`` (one call, three kernels) backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                              bq=q.shape[2], bk=k.shape[2])
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, causal=causal,
+                                              window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None

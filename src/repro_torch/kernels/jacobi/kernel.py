@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import jacobi_sweep_ref
 
 
@@ -156,6 +156,7 @@ def jacobi_sweep_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,
         lo, hi = max(r0 - 1, 0), min(r1 + 1, ni)   # the rows and their halo planes
         out.copy_(jacobi_sweep_ref(f[lo:hi], c)[r0 - lo:r1 - lo])
         return out
+    refuse_grad("jacobi_sweep_cuda (K1)", "§2, K1 and K2 gradients", f, out)
     if out.numel() == 0:
         return out
     lib = _lib()

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .kernel import _lib, _shares_storage, check_lattice
 from .ref import jacobi_two_step_ref
 
@@ -49,6 +49,7 @@ def jacobi_two_step_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,
                          f"{tuple(f.shape)} on {f.device}, apart from f")
     if f.device.type == "cpu":
         return out.copy_(jacobi_two_step_ref(f, c))
+    refuse_grad("jacobi_two_step_cuda (K2)", "§2, K1 and K2 gradients", f, out)
     if out.numel() == 0:
         return out
     lib = _lib()

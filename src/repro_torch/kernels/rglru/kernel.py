@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import rglru_scan_ref
 
 
@@ -72,6 +72,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
         raise ValueError(f"T={t} not divisible by chunk={chunk}")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
+    refuse_grad("rglru_scan_cuda (K5)", "§2, K4 and K5 gradients", a, b, h0)
     tensors = [x for x in (a, b, h0) if x is not None]
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError(f"rglru_scan takes float32 on the card: "

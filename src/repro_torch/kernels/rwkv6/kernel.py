@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import wkv6_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +85,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         o, st = wkv6_ref(r, k, v, w, u, s0=s0)
         return o, (st if s0 is None else s0.copy_(st))
+    refuse_grad("wkv6_cuda (K4)", "§2, K4 and K5 gradients", r, k, v, w, u, s0)
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not compiled; the kernel takes {HEAD_DIMS}")
     f32 = [x for x in (w, u, s0) if x is not None]

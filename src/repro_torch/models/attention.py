@@ -42,7 +42,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention.kernel import flash_attention
+from ..kernels.flash_attention.kernel import FlashAttentionFn, flash_attention
 from .common import Params, apply_rope, dense_init, matmul_lowp
 
 NEG_INF = -2.0e38
@@ -224,11 +224,17 @@ def _kernel_attention(q, k, v, *, causal: bool, q_offset: int,
                       window: int = 0) -> torch.Tensor:
     """K3 on (B, T, H, hd) tensors: the kernel takes their transposed views
     as they lie, and its (B, Hq, Tq, hd) result lies in (B, Tq, Hq, hd)
-    memory, so neither side copies.  The block sizes only have to divide."""
+    memory, so neither side copies.  The block sizes only have to divide.
+    With grad mode on and an input that requires grad (training), K3 runs
+    as ``FlashAttentionFn``, whose backward is K3's backward kernel;
+    otherwise (serving) it is launched as a plain call."""
     b, tq, h, hd = q.shape
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=causal, window=window, q_offset=q_offset,
-                          bq=tq, bk=k.shape[1])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttentionFn.apply(qt, kt, vt, causal, window, q_offset)
+    else:
+        out = flash_attention(qt, kt, vt, causal=causal, window=window,
+                              q_offset=q_offset, bq=tq, bk=k.shape[1])
     return out.transpose(1, 2).reshape(b, tq, h * hd)
 
 

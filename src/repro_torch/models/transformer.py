@@ -23,7 +23,9 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from .._tree import leaves
 from ..configs.base import ModelConfig
 from .attention import attention_block, attn_init
 from .common import Params, layer_norm, layer_norm_init, rms_norm, rms_norm_init
@@ -198,14 +200,27 @@ def apply_stack(params: list[Params], x: torch.Tensor, cfg: ModelConfig, *,
                 pos_offset: int, caches: Optional[list[Params]] = None,
                 cross_x: Optional[torch.Tensor] = None, causal: bool = True,
                 use_kernel: bool = True):
-    """Returns (x, new_caches, total_aux)."""
+    """Returns (x, new_caches, total_aux).
+
+    With ``cfg.remat``, no caches and a gradient to take (grad mode on and
+    ``x`` or a parameter requiring grad: training), each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward pass instead of kept, the reference's
+    ``jax.checkpoint`` of its scanned layers.  Memory changes, numbers do
+    not."""
     new_caches = None if caches is None else []
     aux_total = 0.0
+    remat = cfg.remat and caches is None and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in leaves(params)))
     for i, kind in enumerate(cfg.layer_kinds()):
         c = None if caches is None else caches[i]
-        x, nc, aux = apply_block(params[i], x, cfg, kind, pos_offset=pos_offset,
-                                 cache=c, cross_x=cross_x, causal=causal,
-                                 use_kernel=use_kernel)
+        kw = dict(pos_offset=pos_offset, cache=c, cross_x=cross_x, causal=causal,
+                  use_kernel=use_kernel)
+        if remat:
+            x, nc, aux = checkpoint(apply_block, params[i], x, cfg, kind,
+                                    use_reentrant=False, **kw)
+        else:
+            x, nc, aux = apply_block(params[i], x, cfg, kind, **kw)
         if new_caches is not None:
             new_caches.append(nc)
         aux_total = aux_total + aux

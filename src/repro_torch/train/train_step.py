@@ -1,0 +1,87 @@
+"""The train, prefill and decode steps (the port of ``repro.train.train_step``).
+
+The train step keeps the reference's functional shape,
+``(params, opt_state, batch) -> (params, opt_state, metrics)``: the
+gradient is ``torch.autograd.grad`` of ``Model.loss_fn`` over the flat
+parameter leaves, so nothing is stored on the tensors.  It supports
+gradient accumulation (``cfg.microbatches``): microbatch j holds rows j,
+j + k, j + 2k, ... of the batch, as the reference's device-major split
+gives them; gradients flow in the param dtype and are accumulated in
+fp32; the loss is the microbatches' mean and the other metrics are the
+last microbatch's.  On the card, attention's gradient runs in K3's
+backward kernel (``kernels.flash_attention.kernel.FlashAttentionFn``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .._tree import leaves, unflatten
+from ..models.model import Model
+from .optimizer import AdamWConfig, adamw_update
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _split_microbatches(batch: dict, k: int) -> list[dict]:
+    """(B, ...) -> k microbatches of B / k rows: microbatch j takes rows j,
+    j + k, ... (the reference reshapes to (B / k, k, ...) and moves k in
+    front)."""
+    def split(x):
+        b = x.shape[0]
+        return x.reshape(b // k, k, *x.shape[1:]).transpose(0, 1)
+    parts = {name: split(x) for name, x in batch.items()}
+    return [{name: xs[j] for name, xs in parts.items()} for j in range(k)]
+
+
+def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+    cfg = model.cfg
+    opt_cfg = opt_cfg or AdamWConfig()
+    pdtype = _DTYPES[cfg.dtype]
+    k = max(cfg.microbatches, 1)
+
+    def value_and_grad(params, mb):
+        flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+        with torch.enable_grad():
+            loss, metrics = model.loss_fn(unflatten(params, flat), mb)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+        metrics = {name: m.detach() if isinstance(m, torch.Tensor) else m
+                   for name, m in metrics.items()}
+        return loss.detach(), metrics, grads
+
+    def grads_of(params, batch):
+        if k == 1:
+            loss, metrics, grads = value_and_grad(params, batch)
+            return loss, metrics, unflatten(params, grads)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves(params)]
+        total = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+        for mb in _split_microbatches(batch, k):
+            loss, metrics, grads = value_and_grad(params, mb)
+            acc = [a + g.float() / k for a, g in zip(acc, grads)]
+            total = total + loss / k
+        return total, metrics, unflatten(params, acc)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = grads_of(params, batch)
+        new_params, new_opt, opt_metrics = adamw_update(
+            opt_cfg, grads, opt_state, param_dtype=pdtype)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch, caches):
+        return model.prefill(params, batch, caches)
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, tokens, pos, caches):
+        return model.decode_step(params, tokens, pos, caches)
+    return decode_step

@@ -1,0 +1,522 @@
+"""The port's training path (``repro_torch.train``, ``data``,
+``distributed.fault``, ``launch.train`` and the example twins) held
+against the JAX package on the CPU, plus ``cuda`` tests of K3's backward
+kernel and of the kernels that must refuse a gradient.
+
+The numbers: the reduced qwen2-0.5b (``reduce_config``, f32) with the
+reference's own initial parameters carried across by ``params_from_jax``,
+the reference's synthetic corpus (seed 3), AdamW lr 1e-3 with 2 warmup
+steps.  On the CPU the port's attention is the plain path.  Tolerances:
+
+* step 1: loss within 1e-5 relative of the JAX ``make_train_step`` under
+  ``jax.jit``; each leaf's gradient within 1e-5 of that leaf's largest
+  |g| (the same f32 math, sums in another order);
+* steps 2 and 3: losses within 1e-4;
+* parameters after 3 steps: Adam's m / sqrt(v) turns a noise-level
+  gradient into a step of +-lr, so where step 1's |g| exceeds 1e-3 of the
+  leaf's largest, within 1e-4 of max(|value|, 2 lr x 3 steps); everywhere
+  else within 2 lr x 3 steps.  The floor: a value that Adam moved from
+  near zero (a bias) is made of its updates, and an update's m / sqrt(v)
+  amplifies the gradient's relative error, which is up to 1e-5 / 1e-3 at
+  the mask's edge; against |value| alone, bk of layer 0 (0.0015 after 3
+  steps, 1.8e-7 apart) took 1.2x that limit;
+* ``schedule`` and ``adamw_update`` alone: 1e-6 relative.
+
+One jitted JAX step and one reference run per module fixture keep the
+file fast.
+"""
+import dataclasses
+import pathlib
+import re
+import runpy
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.data.pipeline as ref_pipeline
+import repro.distributed.fault as ref_fault
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduce_config as jax_reduce_config
+from repro.models.model import build_model as jax_build_model
+from repro.train import optimizer as ref_opt
+from repro.train import train_step as ref_step
+from repro_torch import _tree
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.data import pipeline
+from repro_torch.distributed import fault
+from repro_torch.models.convert import (opt_state_from_jax, opt_state_to_jax,
+                                        params_from_jax, params_to_jax)
+from repro_torch.models.model import build_model
+from repro_torch.train import optimizer, train_step
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCH = "qwen2-0.5b"
+SEQ, BATCH, SEED, STEPS = 32, 4, 3, 3
+LR = 1e-3
+
+
+def _opt_cfgs():
+    kw = dict(lr=LR, warmup_steps=2, total_steps=10)
+    return ref_opt.AdamWConfig(**kw), optimizer.AdamWConfig(**kw)
+
+
+def _batches(cfg, n, batch=BATCH):
+    it = ref_pipeline.make_batch_iterator(cfg.vocab_size, SEQ, batch, seed=SEED)
+    return [next(it) for _ in range(n)]
+
+
+def _jb(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _tb(b):
+    return {k: torch.as_tensor(v) for k, v in b.items()}
+
+
+def _models(microbatches=1):
+    jcfg = dataclasses.replace(jax_reduce_config(jax_get_config(ARCH)),
+                               microbatches=microbatches)
+    cfg = dataclasses.replace(reduce_config(get_config(ARCH)), microbatches=microbatches)
+    jm = jax_build_model(jcfg, max_pos=64)
+    pm = build_model(cfg, max_pos=64, device="cpu")
+    jp = jm.init_params(jax.random.key(0))
+    return cfg, jm, jp, pm, params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+
+
+def _port_tree(tree, cfg):
+    """A reference params-shaped tree (JAX arrays) in the port's layout."""
+    return params_from_jax(jax.tree.map(np.asarray, tree), cfg, "cpu")
+
+
+@pytest.fixture(scope="module")
+def run():
+    """Three steps of each package's train step from the same params and
+    batches, and the reference's step-1 gradient."""
+    cfg, jm, jp, pm, pp = _models()
+    jopt, opt = _opt_cfgs()
+    batches = _batches(cfg, STEPS)
+    jstep = jax.jit(ref_step.make_train_step(jm, jopt))
+    pstep = train_step.make_train_step(pm, opt)
+    (_, _), jg = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(jp, _jb(batches[0]))
+    js, jo, ps, po = jp, ref_opt.init_opt_state(jp), pp, optimizer.init_opt_state(pp)
+    jl, pl = [], []
+    for b in batches:
+        js, jo, jmet = jstep(js, jo, _jb(b))
+        ps, po, pmet = pstep(ps, po, _tb(b))
+        jl.append(jmet)
+        pl.append(pmet)
+    return dict(cfg=cfg, pm=pm, pp=pp, batches=batches, grads=_port_tree(jg, cfg),
+                jparams=_port_tree(js, cfg), jopt=jo, params=ps, opt=po,
+                jmetrics=jl, metrics=pl)
+
+
+class TestTrainStep:
+    def test_step1_loss(self, run):
+        want, got = float(run["jmetrics"][0]["loss"]), float(run["metrics"][0]["loss"])
+        assert abs(got - want) <= 1e-5 * abs(want)
+        for name in ("ce", "aux", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(run["metrics"][0][name]),
+                                       float(run["jmetrics"][0][name]), rtol=1e-5, atol=1e-7)
+
+    def test_step1_gradient_per_leaf(self, run):
+        pm, pp, cfg = run["pm"], run["pp"], run["cfg"]
+        flat = [p.detach().requires_grad_(True) for p in _tree.leaves(pp)]
+        loss, _ = pm.loss_fn(_tree.unflatten(pp, flat), _tb(run["batches"][0]))
+        got = torch.autograd.grad(loss, flat)
+        want = _tree.flatten_with_path(run["grads"])
+        assert len(got) == len(want)
+        for (path, w), g in zip(want, got):
+            lim = 1e-5 * float(w.abs().max())
+            assert float((g - w).abs().max()) <= lim, path
+
+    def test_steps_2_and_3_losses(self, run):
+        for j, p in zip(run["jmetrics"][1:], run["metrics"][1:]):
+            assert abs(float(p["loss"]) - float(j["loss"])) <= 1e-4
+
+    def test_params_after_three_steps(self, run):
+        grads = dict(_tree.flatten_with_path(run["grads"]))
+        for (path, want), got in zip(_tree.flatten_with_path(run["jparams"]),
+                                     _tree.leaves(run["params"])):
+            g1 = grads[path].abs()
+            big = g1 > 1e-3 * g1.max()
+            err = (got - want).abs()
+            scale = torch.clamp(want.abs(), min=2 * LR * STEPS)
+            assert bool((err[big] <= 1e-4 * scale[big]).all()), path
+            assert float(torch.cat([err[~big], err.new_zeros(1)]).max()) <= 2 * LR * STEPS, path
+
+    def test_opt_state_after_three_steps(self, run):
+        cfg = run["cfg"]
+        want = opt_state_from_jax(jax.tree.map(np.asarray, run["jopt"]), cfg, "cpu")
+        assert int(run["opt"]["step"]) == int(want["step"]) == STEPS
+        for (path, w), g in zip(_tree.flatten_with_path(want["master"]),
+                                _tree.leaves(run["opt"]["master"])):
+            assert float((g - w).abs().max()) <= 2 * LR * STEPS, path
+
+    def test_microbatches_take_the_reference_rows(self):
+        x = np.arange(8 * 3).reshape(8, 3)
+        want = np.asarray(ref_step._split_microbatches({"t": jnp.asarray(x)}, 2)["t"])
+        got = train_step._split_microbatches({"t": torch.as_tensor(x)}, 2)
+        assert [mb["t"].tolist() for mb in got] == want.tolist()
+        assert got[1]["t"][:, 0].tolist() == [3, 9, 15, 21]   # rows 1, 3, 5, 7
+
+    def test_microbatches_2_step(self):
+        cfg, jm, jp, pm, pp = _models(microbatches=2)
+        jopt, opt = _opt_cfgs()
+        b = _batches(cfg, 1)[0]
+        js, _, jmet = jax.jit(ref_step.make_train_step(jm, jopt))(
+            jp, ref_opt.init_opt_state(jp), _jb(b))
+        ps, _, pmet = train_step.make_train_step(pm, opt)(pp, optimizer.init_opt_state(pp),
+                                                          _tb(b))
+        assert abs(float(pmet["loss"]) - float(jmet["loss"])) <= 1e-5 * abs(float(jmet["loss"]))
+        np.testing.assert_allclose(float(pmet["ce"]), float(jmet["ce"]), rtol=1e-5)
+        np.testing.assert_allclose(float(pmet["grad_norm"]), float(jmet["grad_norm"]),
+                                   rtol=1e-5)
+        for (path, w), g in zip(_tree.flatten_with_path(_port_tree(js, cfg)),
+                                _tree.leaves(ps)):
+            assert float((g - w).abs().max()) <= 2 * LR, path
+
+
+class TestOptimizer:
+    def test_schedule(self):
+        jc, pc = _opt_cfgs()
+        for step in (0, 1, 2, 3, 5, 9, 10, 12):
+            np.testing.assert_allclose(float(optimizer.schedule(pc, step)),
+                                       float(ref_opt.schedule(jc, jnp.float32(step))),
+                                       rtol=1e-6)
+
+    def test_adamw_update_alone(self):
+        rng = np.random.default_rng(0)
+        shapes = {"a": (5, 7), "b": {"c": (3,), "d": (2, 2, 4)}}
+        mk = lambda s: rng.standard_normal(s).astype(np.float32)
+        grads = jax.tree.map(mk, shapes, is_leaf=lambda x: isinstance(x, tuple))
+        params = jax.tree.map(mk, shapes, is_leaf=lambda x: isinstance(x, tuple))
+        m = jax.tree.map(lambda x: 0.1 * x, params)
+        v = jax.tree.map(lambda x: np.abs(x) * 0.01, grads)
+        jc, pc = _opt_cfgs()
+        jstate = {"master": jax.tree.map(jnp.asarray, params), "m": jax.tree.map(jnp.asarray, m),
+                  "v": jax.tree.map(jnp.asarray, v), "step": jnp.asarray(3, jnp.int32)}
+        pstate = {"master": _tree.tree_map(torch.as_tensor, params),
+                  "m": _tree.tree_map(torch.as_tensor, m),
+                  "v": _tree.tree_map(torch.as_tensor, v),
+                  "step": torch.tensor(3, dtype=torch.int32)}
+        jp, js, jmet = ref_opt.adamw_update(jc, jax.tree.map(jnp.asarray, grads), jstate,
+                                            param_dtype=jnp.float32)
+        pp, ps, pmet = optimizer.adamw_update(pc, _tree.tree_map(torch.as_tensor, grads),
+                                              pstate, param_dtype=torch.float32)
+        for name in ("grad_norm", "lr"):
+            np.testing.assert_allclose(float(pmet[name]), float(jmet[name]), rtol=1e-6)
+        for key in ("master", "m", "v"):
+            for w, g in zip(jax.tree.leaves(js[key]), _tree.leaves(ps[key])):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+        for w, g in zip(jax.tree.leaves(jp), _tree.leaves(pp)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+        assert int(ps["step"]) == int(js["step"]) == 4
+
+    def test_init_opt_state_copies(self):
+        p = {"w": torch.ones(3)}
+        s = optimizer.init_opt_state(p)
+        assert s["master"]["w"].data_ptr() != p["w"].data_ptr()
+        assert s["step"].dtype == torch.int32 and int(s["step"]) == 0
+        assert float(optimizer.global_norm({"a": torch.full((4,), 2.0)})) == 4.0
+
+    def test_same_public_names(self):
+        for name in ("AdamWConfig", "schedule", "init_opt_state", "global_norm",
+                     "adamw_update"):
+            assert hasattr(optimizer, name) and hasattr(ref_opt, name)
+        assert dataclasses.asdict(optimizer.AdamWConfig()) == \
+            dataclasses.asdict(ref_opt.AdamWConfig())
+
+
+class TestBridge:
+    def test_params_round_trip_exactly(self, run):
+        cfg, pp = run["cfg"], run["pp"]
+        tree = params_to_jax(pp, cfg)
+        back = params_from_jax(tree, cfg, "cpu")
+        for a, b in zip(_tree.leaves(pp), _tree.leaves(back)):
+            assert torch.equal(a, b)
+
+    def test_params_to_jax_is_the_reference_tree(self):
+        _, _, jp, _, pp = _models()
+        cfg = reduce_config(get_config(ARCH))
+        got = params_to_jax(pp, cfg)
+        assert jax.tree.structure(got) == jax.tree.structure(jp)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jp)):
+            np.testing.assert_array_equal(a, np.asarray(b))
+
+    def test_bf16_leaves_round_trip_bit_for_bit(self):
+        cfg = dataclasses.replace(reduce_config(get_config(ARCH)), dtype="bfloat16")
+        pm = build_model(cfg, max_pos=64, device="cpu")
+        pp = pm.init_params(torch.Generator().manual_seed(0))
+        tree = params_to_jax(pp, cfg)
+        assert jax.tree.leaves(tree)[0].dtype.name == "bfloat16"
+        for a, b in zip(_tree.leaves(pp), _tree.leaves(params_from_jax(tree, cfg, "cpu"))):
+            assert a.dtype == b.dtype == torch.bfloat16
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+    def test_opt_state_round_trip(self, run):
+        cfg = run["cfg"]
+        tree = opt_state_to_jax(run["opt"], cfg)
+        assert jax.tree.structure(tree) == jax.tree.structure(run["jopt"])
+        back = opt_state_from_jax(tree, cfg, "cpu")
+        for a, b in zip(_tree.leaves(run["opt"]), _tree.leaves(back)):
+            assert torch.equal(a, b)
+
+
+class TestCopies:
+    """``data.pipeline`` and ``distributed.fault`` are copies of the
+    reference's numpy-only modules: every observable equal."""
+
+    def test_batch_iterator_equal(self):
+        a = ref_pipeline.make_batch_iterator(512, 16, 4, seed=5)
+        b = pipeline.make_batch_iterator(512, 16, 4, seed=5)
+        for _ in range(3):
+            x, y = next(a), next(b)
+            assert x.keys() == y.keys()
+            for k in x:
+                np.testing.assert_array_equal(x[k], y[k])
+
+    def test_sharded_loader_equal(self):
+        kw = dict(vocab_size=300, seq_len=8, global_batch=4, num_shards=12, num_hosts=3,
+                  seed=2)
+        a = ref_pipeline.ShardedLoader(ref_pipeline.DataConfig(**kw), host_id=1)
+        b = pipeline.ShardedLoader(pipeline.DataConfig(**kw), host_id=1)
+        assert a.my_shards == b.my_shards and a.host_batch == b.host_batch
+        ia, ib = iter(a), iter(b)
+        for _ in range(3):
+            x, y = next(ia), next(ib)
+            np.testing.assert_array_equal(x["tokens"], y["tokens"])
+        a.close()
+        b.close()
+
+    def test_fault_planning_equal(self):
+        devs = dict(pods=2, data=4, model=2, failed=frozenset({(0, 1, 1), (1, 3, 0)}))
+        assert fault.plan_elastic_mesh(fault.DeviceSet(**devs)) == \
+            ref_fault.plan_elastic_mesh(ref_fault.DeviceSet(**devs))
+        homes = np.arange(40) % 8
+        a = ref_fault.rebuild_schedule(homes, np.ones(40), 8, 5)
+        b = fault.rebuild_schedule(homes, np.ones(40), 8, 5)
+        assert [list(x) for x in a.lists] == [list(x) for x in b.lists]
+        assert (a.locality_fraction, a.imbalance, a.moved) == \
+            (b.locality_fraction, b.imbalance, b.moved)
+        with pytest.raises(RuntimeError):
+            fault.plan_elastic_mesh(fault.DeviceSet(pods=1, data=1, model=2,
+                                                    failed=frozenset({(0, 0, 0)})))
+
+    def test_straggler_monitor_equal(self):
+        ma, mb = ref_fault.StragglerMonitor(4), fault.StragglerMonitor(4)
+        for t in ([1, 1, 1, 2], [1, 1.1, 1, 2.5], [1, 1, 1, 1.9]):
+            ra, rb = ma.update(t), mb.update(t)
+            assert ra["stragglers"] == rb["stragglers"]
+            assert ra["shed_fraction"] == rb["shed_fraction"]
+
+    def test_same_public_names(self):
+        for ref, port in ((ref_pipeline, pipeline), (ref_fault, fault)):
+            names = lambda m: sorted(n for n in vars(m) if not n.startswith("_")
+                                     and getattr(getattr(m, n), "__module__", m.__name__)
+                                     == m.__name__)
+            assert names(port) == names(ref)
+
+
+def _run(args, capsys, monkeypatch):
+    """Run a script (``path.py ...``) or module (``-m name ...``) in this
+    process, as ``python`` would, and return what it printed."""
+    monkeypatch.chdir(ROOT)
+    if args[0] == "-m":
+        monkeypatch.setattr(sys, "argv", [args[1], *args[2:]])
+        runpy.run_module(args[1], run_name="__main__", alter_sys=True)
+    else:
+        monkeypatch.setattr(sys, "argv", list(args))
+        runpy.run_path(str(ROOT / args[0]), run_name="__main__")
+    return capsys.readouterr().out
+
+
+class TestEntryPoints:
+    def test_launch_train_smoke_cpu(self, tmp_path, capsys, monkeypatch):
+        out = _run(["-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke",
+                    "--steps", "4", "--batch", "2", "--seq", "16", "--device", "cpu",
+                    "--ckpt", str(tmp_path / "ck"), "--ckpt-every", "2"], capsys, monkeypatch)
+        lines = out.strip().splitlines()
+        assert re.fullmatch(r"first-10 mean loss: \d+\.\d{4}", lines[-2])
+        assert re.fullmatch(r"last-10  mean loss: \d+\.\d{4}", lines[-1])
+        assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == \
+            ["step_00000002", "step_00000004"]
+
+    @pytest.mark.parametrize("example,args,expect", [
+        ("torch_train_100m.py", ["--steps", "2", "--batch", "2", "--seq", "16",
+                                 "--ckpt", ""], r"loss: first-1 mean"),
+        ("torch_elastic_failover.py", ["--steps", "8", "--ckpt", "{tmp}"],
+         r"elastic failover complete"),
+        ("torch_quickstart.py", ["--steps", "3"], r"locality fraction"),
+    ])
+    def test_example_twin_cpu(self, tmp_path, capsys, monkeypatch, example, args, expect):
+        args = [a.replace("{tmp}", str(tmp_path / "ck")) for a in args]
+        out = _run([f"examples/{example}", "--device", "cpu", *args], capsys, monkeypatch)
+        assert re.search(expect, out), out[-2000:]
+
+    def test_new_modules_import_neither_jax_nor_repro(self):
+        bad = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
+        files = [p for d in ("train", "checkpoint", "data", "distributed")
+                 for p in sorted((ROOT / "src" / "repro_torch" / d).glob("*.py"))]
+        files += [ROOT / "src/repro_torch/launch/train.py", ROOT / "src/repro_torch/_tree.py",
+                  ROOT / "src/repro_torch/models/convert.py"]
+        files += sorted((ROOT / "examples").glob("torch_*.py"))
+        assert len(files) >= 14
+        assert [str(p.relative_to(ROOT)) for p in files if bad.search(p.read_text())] == []
+
+
+# -- on the card ---------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K3's backward has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _grad_inputs(dev, b, hq, hkv, tq, tk, hd, dtype, seed=0):
+    """q, k, v as the model's (B, T, H, hd) transposed views and dO, numpy-seeded."""
+    rng = np.random.default_rng(seed)
+    mk = lambda h, t: torch.from_numpy(
+        rng.standard_normal((b, t, h, hd)).astype(np.float32)).to(dev, dtype).transpose(1, 2)
+    return mk(hq, tq), mk(hkv, tk), mk(hkv, tk), mk(hq, tq)
+
+
+def _plain_grads(q, k, v, do, **mask):
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    leaves = [x.float().detach().requires_grad_(True) for x in (q, k, v)]
+    out = mha_ref(*leaves, **mask)
+    return torch.autograd.grad(out, leaves, do.float())
+
+
+# phase 7a's shapes of chip_smoke.py: b, hq, hkv, tq, tk, hd, causal, window, q_offset
+BWD_CASES = [(2, 14, 2, 1024, 1024, 64, True, 0, 0),      # qwen2-0.5b's training shape, cut to B 2
+             (1, 32, 4, 1024, 1024, 128, True, 0, 0),     # qwen3-moe
+             (1, 4, 1, 1024, 1024, 256, True, 512, 0),    # gemma3-1b's window
+             (1, 8, 8, 1536, 1536, 64, False, 0, 0),      # whisper's encoder, no mask
+             (1, 8, 8, 128, 1536, 64, False, 0, 0),       # cross, Tq != Tk
+             (1, 4, 2, 77, 333, 64, True, 40, 256)]       # ragged, windowed, offset
+
+
+def _limit_share(got, want, dtype):
+    mx = float(want.abs().max())
+    lim = (1e-4 * mx if dtype == torch.float32
+           else 2 ** -7 * want.abs() + 2 ** -8 * mx)
+    return float(((got.float() - want).abs() / lim).max())
+
+
+@pytest.mark.cuda
+class TestK3BackwardOnCard:
+    """K3's backward kernel per element against autograd of ``mha_ref`` on
+    f32 copies: 1e-4 of the largest |ref| in f32; 2^-7 |ref| + 2^-8 max|ref|
+    in bf16 (the gradient is rounded once to bf16)."""
+
+    @pytest.mark.parametrize("case", BWD_CASES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_against_plain_autograd(self, cuda, case, dtype):
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_backward
+        b, hq, hkv, tq, tk, hd, causal, window, qo = case
+        q, k, v, do = _grad_inputs(cuda, b, hq, hkv, tq, tk, hd, dtype)
+        mask = dict(causal=causal, window=window, q_offset=qo)
+        got = flash_attention_backward(q, k, v, do, **mask)
+        want = _plain_grads(q, k, v, do, **mask)
+        torch.cuda.synchronize()
+        for g, w, x in zip(got, want, (q, k, v)):
+            assert g.shape == x.shape and g.dtype == dtype
+            assert _limit_share(g, w, dtype) <= 1.0
+
+    def test_planted_faults_exceed_the_limit(self, cuda):
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_backward
+        from repro_torch.kernels.flash_attention.ref import mha_ref
+        q, k, v, do = _grad_inputs(cuda, 1, 14, 2, 512, 512, 64, torch.float32)
+        dq, dk, _ = flash_attention_backward(q, k, v, do)
+        # dK summed over one head of the group
+        leaves = [x.detach().requires_grad_(True) for x in
+                  (q, k.repeat_interleave(7, 1), v.repeat_interleave(7, 1))]
+        gk = torch.autograd.grad(mha_ref(*leaves), leaves[1], do)[0]
+        assert _limit_share(dk, gk[:, ::7], torch.float32) > 1.0
+        # the mask dropped in dQ
+        assert _limit_share(dq, _plain_grads(q, k, v, do, causal=False)[0],
+                            torch.float32) > 1.0
+
+    def test_repeat_is_bit_identical(self, cuda):
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_backward
+        q, k, v, do = _grad_inputs(cuda, 2, 14, 2, 1024, 1024, 64, torch.bfloat16)
+        a = flash_attention_backward(q, k, v, do)
+        b = flash_attention_backward(q, k, v, do)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def test_autograd_function_counts_one_of_each(self, cuda):
+        from repro_torch.kernels.flash_attention import kernel
+        q, k, v, do = _grad_inputs(cuda, 1, 14, 2, 128, 128, 64, torch.bfloat16)
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        kernel.flash_attention.launches = kernel.flash_attention_backward.launches = 0
+        out = kernel.FlashAttentionFn.apply(q, k, v, True, 0, 0)
+        out.backward(do)
+        assert (kernel.flash_attention.launches,
+                kernel.flash_attention_backward.launches) == (1, 1)
+        want = _plain_grads(q, k, v, do)
+        for g, w in zip((q.grad, k.grad, v.grad), want):
+            assert _limit_share(g, w, torch.bfloat16) <= 1.0
+
+
+@pytest.mark.cuda
+class TestGradientsOnCard:
+    def test_other_kernels_refuse_a_gradient(self, cuda):
+        from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
+        from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+        from repro_torch.kernels.rglru.kernel import rglru_scan_cuda
+        from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
+        r = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+        w = torch.rand(1, 64, 2, 64, device=cuda)
+        with pytest.raises(RuntimeError, match="wkv6_cuda.*ROADMAP"):
+            wkv6_cuda(r, r.detach(), r.detach(), w, torch.zeros(2, 64, device=cuda))
+        a = torch.rand(1, 128, 32, device=cuda, requires_grad=True)
+        with pytest.raises(RuntimeError, match="rglru_scan_cuda.*ROADMAP"):
+            rglru_scan_cuda(a, a.detach())
+        f = torch.randn(20, 20, 20, device=cuda, requires_grad=True)
+        with pytest.raises(RuntimeError, match="jacobi_sweep_cuda.*ROADMAP"):
+            jacobi_sweep_cuda(f)
+        with pytest.raises(RuntimeError, match="jacobi_two_step_cuda.*ROADMAP"):
+            jacobi_two_step_cuda(f)
+        with torch.no_grad():                        # no gradient asked: they run
+            jacobi_sweep_cuda(f)
+            rglru_scan_cuda(a, a)
+
+    def test_loss_gradient_reaches_every_attention_projection(self, cuda):
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=2)
+        model = build_model(cfg, device=cuda)
+        params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+        rng = np.random.default_rng(0)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 129)), device=cuda)
+        flat = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
+        tree = _tree.unflatten(params, flat)
+        loss, _ = model.loss_fn(tree, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        grads = dict(zip([path for path, _ in _tree.flatten_with_path(params)],
+                         torch.autograd.grad(loss, flat, allow_unused=True)))
+        for layer in range(cfg.num_layers):
+            for name in ("wq", "wk", "wv", "bq", "bk", "bv"):
+                g = grads[f"stack/{layer}/attn/{name}"]
+                assert g is not None and bool(torch.isfinite(g).all()) and \
+                    float(g.abs().max()) > 0, (layer, name)
+
+    def test_serving_call_launches_as_before(self, cuda):
+        """No grad asked: the attention block calls K3 directly, the same
+        bits as ``flash_attention`` and no backward."""
+        from repro_torch.kernels.flash_attention import kernel
+        from repro_torch.models.attention import _kernel_attention
+        rng = np.random.default_rng(1)
+        q, k, v = (torch.from_numpy(rng.standard_normal((1, 200, h, 64)).astype(np.float32))
+                   .to(cuda, torch.bfloat16) for h in (14, 2, 2))
+        kernel.flash_attention.launches = kernel.flash_attention_backward.launches = 0
+        got = _kernel_attention(q, k, v, causal=True, q_offset=0)
+        want = kernel.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), bq=200, bk=200)
+        assert torch.equal(got, want.transpose(1, 2).reshape(1, 200, 14 * 64))
+        assert got.grad_fn is None
+        assert (kernel.flash_attention.launches,
+                kernel.flash_attention_backward.launches) == (2, 0)
