@@ -176,26 +176,52 @@ failure:
    at the new architectures' shapes beside SDPA (without a mask where K3
    runs without one);
 7. training (``train_phase``).  7a: K3's backward kernel
-   (``flash_attention_backward``) against autograd of ``mha_ref`` on f32
-   copies, per element (f32: 1e-4 of the largest |ref|; bf16: 2^-7 |ref|
-   + 2^-8 max |ref|) at qwen2-0.5b's training shape (batch 8 x 1024),
-   qwen3-moe's 32/4 heads of 128, gemma3-1b's window (hd 256), whisper's
-   encoder without a mask and a cross shape, in bf16 and f32; two planted
+   (``flash_attention_backward``: in bf16 on tensor cores, reading the
+   log-sum-exp and f32 output K3's forward writes under grad; in f32 the
+   SIMT kernels) against autograd of ``mha_ref`` on f32 copies, per
+   element (f32: 1e-4 of the largest |ref|; bf16: 2^-7 |ref| + 2^-8 max
+   |ref|) at qwen2-0.5b's training shape (batch 8 x 1024), qwen3-moe's
+   32/4 heads of 128, gemma3-1b's window (hd 256), whisper's encoder
+   without a mask, a cross shape and recurrentgemma-9b's local layers
+   (16/1 heads of 256, window 2048, T 3072), in bf16 and f32; two planted
    faults (dK from one head of the group, the mask dropped in dQ) must
    exceed the limit and a repeated call must give the same bits; times
-   beside the plain autograd, SDPA's backward and the bound.  7b: one
-   full-width qwen2-0.5b bf16 train step, kernel path against the plain
-   path from the same params and batch (loss and every leaf's gradient);
-   7c: the same on an f32 build of 4 of its 24 layers, with two planted
-   faults in K3's backward.  7d: ``launch.train.make_trainer`` on
-   full-width qwen2-0.5b, 20 steps of 8 x 1024 from the synthetic corpus
-   (seed 0): ms a step, tokens per second, the share of the 6 N tokens
-   bound, K3's forward and backward launches a step (counts zeroed before
-   the run), peak memory, one profiled step's idle share; the loss must
-   fall.  7e: with deterministic algorithms on, 12 steps with a checkpoint
-   every 6, then a second trainer resumed from step 6 must give the same
-   losses, params and optimizer state bit for bit; the checkpoint's bytes
-   and save and restore times;
+   beside the previous (SIMT) design, the plain autograd, SDPA's backward and
+   the bound.  7b: one full-width qwen2-0.5b bf16 train step, kernel path
+   against the plain path from the same params and batch (loss and every
+   leaf's gradient); 7c: the same on an f32 build of 4 of its 24 layers,
+   with two planted faults in K3's backward.  7d:
+   ``launch.train.make_trainer`` on full-width qwen2-0.5b, 20 steps of 8 x
+   1024 from the synthetic corpus (seed 0): ms a step, tokens per second,
+   the share of the 6 N tokens bound, K3's forward and backward launches a
+   step (counts zeroed before the run), peak memory, one profiled step's
+   idle share; the loss must fall.  7e, as a user runs the trainer (no
+   ``CUBLAS_WORKSPACE_CONFIG``, no ``torch.use_deterministic_algorithms``;
+   ROADMAP F2): 12 steps with a checkpoint every 6, and a second trainer
+   resumed from step 6 must give the same losses, params and optimizer
+   state bit for bit (unequal elements counted); the checkpoint's bytes
+   and save and restore times.  7f (``recurrent_backward_phase``): K5's backward
+   against ``rglru_scan_bwd_ref`` and the CUDA autograd of
+   ``rglru_scan_ref``, bit for bit, at recurrentgemma-9b's width 4096 (T
+   1, 31, 33, 1024; W 4097 at T 65), decays near 0, mid and near 1, from
+   h0 and from zero; K4's backward against the CUDA autograd of
+   ``wkv6_ref`` and ``wkv6_bwd_ref`` at rwkv6-3b's 40 heads of 64 in bf16
+   (T 1, 15, 17, 127, 129 crossed with decays near 1, mid and near 0 and
+   s0 given or not; T 1024), per element within ``WKV_BWD_REL`` of the
+   largest |ref| plus one bf16 ulp; two planted faults each, a repeat bit
+   for bit, times beside the bounds and the plain versions.  7g
+   (``arch_phase``): one full-width train step of rwkv6-3b (8 of 32 layers)
+   and recurrentgemma-9b (9 of 38), 2 x 512 tokens, bf16, kernel path
+   against plain path, and an f32 step at 2 and 3 layers with two planted
+   faults in K4's or K5's backward; 7h: ``Trainer`` for 10 steps at full
+   width, rwkv6-3b at 16 of 32 layers (8 x 1024) and recurrentgemma-9b at
+   4 of 38 (4 x 1024; whole, neither fits the card beside the functional
+   optimizer's two states, see ``ARCH_TRAIN``): ms a step, tokens per
+   second, the 6 N tokens bound, launches of every kernel, peak memory,
+   one profiled step's idle share and each kernel's device ms; the loss
+   must fall; 7i: ``python -m
+   repro_torch.launch.train --arch A --smoke --steps 20`` for both on the
+   card.  Every cut is printed;
 8. print the ``serving``, ``training`` and ``kernels`` JSON lines, the
    card's name and power limit, and last the ``{"ok": true, ...}`` line.
 
@@ -217,10 +243,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-# phase 7e's bit-for-bit resume runs under torch.use_deterministic_algorithms,
-# which asks cuBLAS for a fixed workspace: it must be set before CUDA starts
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -1148,8 +1170,13 @@ BWD_SHAPES = {"qwen2_train": (8, 14, 2, 1024, 1024, 64, True, 0),
               "qwen3": (1, 32, 4, 1024, 1024, 128, True, 0),
               "gemma3_window": (1, 4, 1, 1024, 1024, 256, True, 512),
               "whisper_encoder": (1, 8, 8, 1536, 1536, 64, False, 0),
-              "cross": (1, 8, 8, 128, 1536, 64, False, 0)}
+              "cross": (1, 8, 8, 128, 1536, 64, False, 0),
+              "griffin_local": (1, 16, 1, 3072, 3072, 256, True, 2048)}
 BWD_HEADLINE = "qwen2_train"
+# K3's backward at the training shape before this design (the SIMT kernels
+# the f32 path keeps; PERF.md §6, H100 80GB HBM3 at 700 W): printed beside
+# this run's time and kept out of the result lines
+BWD_BEFORE_MS = 6.6028
 # Per element, |got - ref| <= limit.  f32: 1e-4 of the largest |ref| (the
 # same f32 math as the plain autograd, sums in other orders).  bf16: 2^-7
 # |ref| + 2^-8 max |ref| (the gradient is rounded once to bf16, at most
@@ -1205,12 +1232,84 @@ def bwd_limit_share(got, want, dtype) -> float:
     return float(((got.float() - want).abs() / lim).max())
 
 
+def resume_check() -> dict:
+    """Phase 7e: the trainer as a user runs it, with no
+    ``CUBLAS_WORKSPACE_CONFIG`` and no ``torch.use_deterministic_algorithms``
+    (ROADMAP F2): RESUME_STEPS steps with a checkpoint every RESUME_EVERY,
+    and a second trainer resumed from step RESUME_EVERY must give the same
+    losses, params and optimizer state bit for bit."""
+    import shutil
+
+    from repro_torch import _tree
+    from repro_torch.launch.train import make_trainer
+
+    print(f"resume: CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}, "
+          f"deterministic algorithms {torch.are_deterministic_algorithms_enabled()}")
+
+    def unequal_leaves(a, b):
+        pairs = list(zip(_tree.flatten_with_path({"p": a["params"], "o": a["opt_state"]}),
+                         _tree.leaves({"p": b["params"], "o": b["opt_state"]})))
+        return {path: int((x != y).sum()) for (path, x), y in pairs if not torch.equal(x, y)}, \
+            len(pairs)
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        print(f"resume: checkpoints in {ckpt} ({shutil.disk_usage(ckpt).free / 1e9:.1f} GB "
+              f"free)")
+
+        def trainer_for():
+            t = make_trainer(QWEN, steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             seed=0, device="cuda", ckpt=ckpt, ckpt_every=RESUME_EVERY,
+                             log_fn=lambda line: None)
+            saves, restores = [], []
+            save, restore = t.ckpt.save, t._restore_latest
+
+            def timed_save(step, state, blocking=False):
+                t0 = time.perf_counter()
+                save(step, state, blocking=blocking)
+                saves.append((step, blocking, time.perf_counter() - t0))
+
+            def timed_restore(*args):
+                t0 = time.perf_counter()
+                out = restore(*args)
+                restores.append(time.perf_counter() - t0)
+                return out
+
+            t.ckpt.save, t._restore_latest = timed_save, timed_restore
+            return t, saves, restores
+
+        t1, saves1, _ = trainer_for()
+        straight = t1.run(seed=0)
+        step_dir = pathlib.Path(ckpt) / f"step_{RESUME_EVERY:08d}"
+        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+        shutil.rmtree(pathlib.Path(ckpt) / f"step_{RESUME_STEPS:08d}")   # the "crash"
+        t2, saves2, restores2 = trainer_for()
+        resumed = t2.run(seed=0)
+        same_losses = resumed["losses"] == straight["losses"][RESUME_EVERY:]
+        differ, n = unequal_leaves(straight, resumed)
+        unequal = sum(differ.values())
+        print(f"resume: {RESUME_STEPS} steps straight vs resumed from step {RESUME_EVERY}: "
+              f"losses {'identical' if same_losses else 'DIFFERENT'} "
+              f"({[round(x, 6) for x in resumed['losses']]}), {unequal} unequal elements "
+              f"in {n} params and optimizer tensors")
+        print(f"resume: a checkpoint of step {RESUME_EVERY} is {nbytes} B on disk "
+              f"({len(list(step_dir.iterdir())) - 1} .npy files); saves "
+              + ", ".join(f"step {s} {'blocking' if b else 'staged'} {x:.2f} s"
+                          for s, b, x in saves1 + saves2)
+              + f"; restore {restores2[0]:.2f} s")
+        if not same_losses or unequal:
+            fail(f"resume: the resumed run differs from the uninterrupted one: {differ}")
+        return {"identical": True, "checkpoint_bytes": nbytes, "saves_s": saves1 + saves2,
+                "restore_s": restores2[0], "losses": resumed["losses"],
+                "unequal_elements": unequal, "tensors": n}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def train_phase(dev, card) -> tuple[dict, dict]:
     """Phase 7 (a-e): K3's backward, the train step at full width, the
     trainer and its resume.  Returns (the training results, K3's backward
     entry of the kernels line)."""
-    import shutil
-
     from repro_torch import _tree
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_iterator
@@ -1288,7 +1387,8 @@ def train_phase(dev, card) -> tuple[dict, dict]:
         q, k, v, do = (views(gen, b, h, t, hd, torch.bfloat16)
                        for h, t in ((hq, tq), (hkv, tk), (hkv, tk), (hq, tq)))
         mask = dict(causal=causal, window=window)
-        ms = time_ms(lambda: k3.flash_attention_backward(q, k, v, do, **mask), 5)
+        stats = k3.forward_with_stats(q, k, v, **mask)[1:]   # the forward's, under grad
+        ms = time_ms(lambda: k3.flash_attention_backward(q, k, v, do, stats=stats, **mask), 5)
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         out = mha_ref(*leaves, **mask)
         plain_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3)
@@ -1306,10 +1406,12 @@ def train_phase(dev, card) -> tuple[dict, dict]:
         bnd = bwd_bound(b, hq, hkv, tq, tk, hd, causal, window, 2)
         shapes[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bnd[0], bound_by=bnd[1])
+        before = (f"; the previous SIMT design {BWD_BEFORE_MS:.4f} ms, "
+                  f"{BWD_BEFORE_MS / ms:.2f}x this" if name == BWD_HEADLINE else "")
         print(f"K3 backward {name} bf16: {ms:.4f} ms (plain autograd {plain_ms:.4f} ms, "
               f"SDPA backward {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
-              f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.1%} of it) [{card}]")
-        del q, k, v, do, leaves
+              f"{bnd[0]:.4f} ms by {bnd[1]}, {bnd[0] / ms:.1%} of it{before}) [{card}]")
+        del q, k, v, do, leaves, stats
     free_device_memory()
 
     # -- 7b, 7c. one train step: the kernel path against the plain path ----
@@ -1466,7 +1568,7 @@ def train_phase(dev, card) -> tuple[dict, dict]:
     spans = drop_warmup(device_spans(prof))
     busy = busy_ms(spans)
     by_family = {fam: sum(e - s for n, s, e in spans if fam in n) / 1e6
-                 for fam in ("attn_bwd_prep", "attn_bwd_dq", "attn_bwd_dkdv",
+                 for fam in ("attn_bwd_delta", "attn_bwd_dq", "attn_bwd_dkdv",
                              "flash_attention_kernel")}
     print(f"{QWEN} profiled train step: wall {prof_ms:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / prof_ms:.4f}; K3 device ms: " + ", ".join(
@@ -1484,66 +1586,10 @@ def train_phase(dev, card) -> tuple[dict, dict]:
         "profiled_step": {"wall_ms": prof_ms, "busy_ms": busy,
                           "idle_share": 1 - busy / prof_ms, "k3_device_ms": by_family}}
 
-    # -- 7e. resume, bit for bit --------------------------------------------
+    # -- 7e. resume, bit for bit, with the port's own settings ---------------
     stamp("7e")
-    torch.use_deterministic_algorithms(True)
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        print(f"resume: deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG="
-              f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; checkpoints in {ckpt} "
-              f"({shutil.disk_usage(ckpt).free / 1e9:.1f} GB free)")
-
-        def trainer_for(**kw):
-            t = make_trainer(QWEN, steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                             seed=0, device="cuda", ckpt=ckpt, ckpt_every=RESUME_EVERY,
-                             log_fn=lambda line: None, **kw)
-            saves, restores = [], []
-            save, restore = t.ckpt.save, t._restore_latest
-
-            def timed_save(step, state, blocking=False):
-                t0 = time.perf_counter()
-                save(step, state, blocking=blocking)
-                saves.append((step, blocking, time.perf_counter() - t0))
-
-            def timed_restore(*args):
-                t0 = time.perf_counter()
-                out = restore(*args)
-                restores.append(time.perf_counter() - t0)
-                return out
-
-            t.ckpt.save, t._restore_latest = timed_save, timed_restore
-            return t, saves, restores
-
-        t1, saves1, _ = trainer_for()
-        straight = t1.run(seed=0)
-        step_dir = pathlib.Path(ckpt) / f"step_{RESUME_EVERY:08d}"
-        nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
-        shutil.rmtree(pathlib.Path(ckpt) / f"step_{RESUME_STEPS:08d}")   # the "crash"
-        t2, saves2, restores2 = trainer_for()
-        resumed = t2.run(seed=0)
-        same_losses = resumed["losses"] == straight["losses"][RESUME_EVERY:]
-        pairs = list(zip(_tree.leaves({"p": straight["params"], "o": straight["opt_state"]}),
-                         _tree.leaves({"p": resumed["params"], "o": resumed["opt_state"]})))
-        unequal = sum(int((a != b).sum()) for a, b in pairs)
-        print(f"resume: {RESUME_STEPS} steps straight vs resumed from step {RESUME_EVERY}: "
-              f"losses {'identical' if same_losses else 'DIFFERENT'} "
-              f"({[round(x, 6) for x in resumed['losses']]}), {unequal} unequal elements "
-              f"in {len(pairs)} params and optimizer tensors")
-        print(f"resume: a checkpoint of step {RESUME_EVERY} is {nbytes} B on disk "
-              f"({len(list(step_dir.iterdir())) - 1} .npy files); saves "
-              + ", ".join(f"step {s} {'blocking' if b else 'staged'} {x:.2f} s"
-                          for s, b, x in saves1 + saves2)
-              + f"; restore {restores2[0]:.2f} s")
-        if not same_losses or unequal:
-            fail("resume: the resumed run differs from the uninterrupted one")
-        results["resume"] = {"identical": True, "checkpoint_bytes": nbytes,
-                             "saves_s": saves1 + saves2, "restore_s": restores2[0],
-                             "losses": resumed["losses"]}
-        del straight, resumed, pairs
-    finally:
-        torch.use_deterministic_algorithms(False)
-        shutil.rmtree(ckpt, ignore_errors=True)
-        free_device_memory()
+    results["resume"] = resume_check()
+    free_device_memory()
 
     head = shapes[BWD_HEADLINE]
     kernel = {
@@ -1556,6 +1602,513 @@ def train_phase(dev, card) -> tuple[dict, dict]:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shapes": shapes}
     return results, kernel
+
+
+# -- 7f-7i. the recurrent families' gradients and their training -----------
+# K5's backward at recurrentgemma-9b's width, B 1: (T, W) at one step, either
+# side of its 32-step stage, a width off 4 (the 4-byte copies) and the
+# training length; decays a in (lo, hi): near 0, mid, near 1; from h0 and
+# from zero.  Limit: 0 unequal elements (each step rounds its product and
+# its sum once, as autograd of the plain loop does)
+RGLRU_BWD_SHAPES = [(1, 4096), (31, 4096), (33, 4096), (65, 4097), (1024, 4096)]
+RGLRU_BWD_DECAYS = {"near 0": (1e-6, 1e-3), "mid": (0.0, 1.0), "near 1": (0.999, 1.0)}
+RGLRU_BWD_HEADLINE = (1024, 4096)
+# K4's backward at rwkv6-3b's 40 heads of 64, B 1, bf16 r, k, v: T 1, either
+# side of its 16-step sub-chunk and of the forward's 128-step chunk, and the
+# training length; w = exp(-exp(d + noise)) at d -8 (near 1), 0 and 4 (near
+# 1e-24); from s0 and from zero, with a final-state gradient.  The plain
+# autograd through wkv6_ref at T 1024 takes about a second, so the decays
+# and s0's absence are crossed at the short lengths and T 1024 runs once.
+WKV_BWD_T = [1, 15, 17, 127, 129]
+WKV_BWD_DECAYS = {"near 1": -8.0, "mid": 0.0, "near 0": 4.0}
+WKV_BWD_HEADLINE_T = 1024
+# Per element, |got - ref| <= WKV_BWD_REL * max |ref| of each gradient, plus
+# one bf16 ulp (2^-7 |ref|) for the gradients of the bf16 r, k, v (both round
+# once from f32 sums in other orders).  Fixed from the first reading on the
+# card (H100 80GB HBM3, 700 W): at 1e-5 the worst case read 0.994 of it
+# (T 127, w near 1), the planted faults 27,778x and 71,968x; the limit sits
+# 3x above the reading (tests/test_torch_train.py uses the same limit).
+WKV_BWD_REL = 3e-5
+# 7g: one train step of each at full width, kernel path against plain path,
+# at a cut depth and batch (the plain WKV loop's autograd is seconds a layer
+# at T 1024): bf16 at POLICY_DEPTH layers, f32 at ARCH_F32_LAYERS layers with
+# two planted faults in the backward kernel
+ARCH_STEP_BATCH, ARCH_STEP_SEQ = 2, 512
+ARCH_F32_LAYERS = {RWKV: 2, GRIFFIN: 3}
+# Limits, fixed from the first reading on the card (H100 80GB HBM3, 700 W;
+# PERF.md §6): the worst leaf's gradient gap (share of the leaf's
+# max) and the loss gap.  rwkv6-3b in f32: the model rounds r, k, v to bf16
+# even in f32, so their gradients round to bf16 too, from f32 sums that K4
+# and the plain loop take in other orders: one bf16 ulp here and there,
+# worst leaf 9.6e-4 (w_k), loss 9.5e-7 (the faults 0.18 and 1.09).
+# rwkv6-3b in bf16: random weights turn those ulps into large per-leaf gaps
+# (worst 0.98 at a layer's u, median 0.18 over 8 layers, as its serving
+# logits moved 0.43 in serving), so the bf16 step is held by its loss gap (5.4e-4)
+# and the whole gradient's gap in the L2 norm (0.26; RWKV_BF16_L2), the
+# per-leaf gaps printed.  recurrentgemma-9b, as qwen2-0.5b in 7b-7c: bf16
+# worst leaf 0.014, loss 1.6e-4; f32 worst leaf 1.0e-6, loss 3.8e-6 (the
+# faults 0.041 and 1.00).
+ARCH_GRAD_LIMITS = {(RWKV, "bfloat16"): (None, 2e-3), (RWKV, "float32"): (3e-3, 1e-5),
+                    (GRIFFIN, "bfloat16"): (0.05, 1e-3), (GRIFFIN, "float32"): (1e-4, 1e-5)}
+RWKV_BF16_L2 = 0.5
+# 7h: the trainer at full width, each config's own microbatches.  Cut in
+# depth: the port's optimizer, as the reference's, is functional, so at the
+# update the old and the new params, f32 master and moments (14 B a param
+# each) stand beside the f32 accumulated gradient: 32 B a param at the
+# peak.  rwkv6-3b whole (3.09e9 params, 99 GB at that peak) ran out of the
+# 80 GB card in its first update (H100 80GB HBM3); at 16 of 32 layers it
+# is 1.70e9 (54 GB).  recurrentgemma-9b at 4 of 38 layers is 1.84e9 (59
+# GB; 9 layers would be 2.83e9, 90 GB)
+ARCH_TRAIN = {RWKV: dict(layers=16, batch=8, steps=10),
+              GRIFFIN: dict(layers=4, batch=4, steps=10)}
+ARCH_TRAIN_SEQ = 1024
+# 7i: F1's own command on the reduced configs
+CLI_STEPS = 20
+
+
+def rglru_bwd_fault(a, h, dh, h0, kind):
+    """K5's backward with a planted fault, in plain PyTorch: the decay of the
+    step itself (a_t) in place of the next one's, or h_t in place of h_{t-1}."""
+    t = a.shape[1]
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = None
+    for i in range(t - 1, -1, -1):
+        nxt = a[:, i] if kind == "a_t for a_{t+1}" else (a[:, i + 1] if i + 1 < t else None)
+        g = dh[:, i] if g is None else dh[:, i] + nxt * g
+        db[:, i] = g
+        prev = h[:, i] if kind == "h_t for h_{t-1}" else (
+            h[:, i - 1] if i > 0 else (h0 if h0 is not None else torch.zeros_like(g)))
+        da[:, i] = g * prev
+    return da, db
+
+
+def wkv_limit_share(got, want) -> float:
+    """The largest |got - want| over its limit (see WKV_BWD_REL)."""
+    worst = 0.0
+    for g, x in zip(got, want):
+        if not bool(g.isfinite().all()):
+            fail("non-finite values in K4's backward")
+        x32 = x.float()
+        lim = WKV_BWD_REL * max(float(x32.abs().max()), 1e-30) + \
+            (2 ** -7 * x32.abs() if x.dtype == torch.bfloat16 else 0.0)
+        worst = max(worst, float(((g.float() - x32).abs() / lim).max()))
+    return worst
+
+
+def recurrent_backward_phase(dev, card) -> dict:
+    """Phase 7f: K5's and K4's backward kernels against their plain versions
+    (``rglru_scan_bwd_ref`` / ``wkv6_bwd_ref``) and the CUDA autograd of
+    ``rglru_scan_ref`` / ``wkv6_ref``; planted faults; repeats; times beside
+    the bounds.  Returns each kernel's measured entry for the kernels line
+    (launches come from 7h)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru import kernel as k5
+    from repro_torch.kernels.rglru.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    from repro_torch.kernels.rwkv6 import kernel as k4
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+
+    stamp("7f")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def k5_inputs(t, w, lo, hi, with_h0):
+        a = lo + (hi - lo) * torch.rand((1, t, w), generator=gen, device=dev)
+        bx, dh = (torch.randn((1, t, w), generator=gen, device=dev) for _ in range(2))
+        h0 = torch.randn((1, w), generator=gen, device=dev) if with_h0 else None
+        with torch.no_grad():
+            h = k5.rglru_scan_cuda(a, bx, chunk=t, h0=h0)
+        return a, bx, dh, h0, h
+
+    def k5_autograd(a, bx, dh, h0):
+        leaves = [x.clone().requires_grad_(True) for x in (a, bx)] + \
+            ([h0.clone().requires_grad_(True)] if h0 is not None else [])
+        out = rglru_scan_ref(leaves[0], leaves[1], leaves[2] if h0 is not None else None)
+        return torch.autograd.grad(out, leaves, dh)
+
+    # -- K5 -----------------------------------------------------------------
+    k5_res, k5_unequal, k5_cases = {}, 0, 0
+    for t, w in RGLRU_BWD_SHAPES:
+        for dname, (lo, hi) in RGLRU_BWD_DECAYS.items():
+            for with_h0 in (False, True):
+                a, bx, dh, h0, h = k5_inputs(t, w, lo, hi, with_h0)
+                got = k5.rglru_scan_backward(a, h, dh, h0)
+                want = rglru_scan_bwd_ref(a, h, dh, h0)
+                auto = k5_autograd(a, bx, dh, h0)
+                n = sum(int((x != y).sum()) for x, y in zip(got, want) if x is not None) + \
+                    sum(int((x != y).sum()) for x, y in zip(got, auto))
+                k5_unequal += n
+                k5_cases += 1
+                k5_res[f"T {t} W {w} a {dname}{' h0' if with_h0 else ''}"] = n
+    torch.cuda.synchronize()
+    print(f"rglru backward (K5) against rglru_scan_bwd_ref and the CUDA autograd of "
+          f"rglru_scan_ref at (T, W) {RGLRU_BWD_SHAPES}, a near 0 / mid / near 1, from h0 "
+          f"and from zero ({k5_cases} cases): {k5_unequal} unequal elements (limit 0)")
+    if k5_unequal:
+        fail(f"K5's backward differs from its plain versions: "
+             f"{ {k: n for k, n in k5_res.items() if n} }")
+    t, w = RGLRU_BWD_HEADLINE
+    a, bx, dh, h0, h = k5_inputs(t, w, 0.0, 1.0, True)
+    got = k5.rglru_scan_backward(a, h, dh, h0)
+    faults = {}
+    for kind in ("a_t for a_{t+1}", "h_t for h_{t-1}"):
+        fda, fdb = rglru_bwd_fault(a, h, dh, h0, kind)
+        faults[kind] = int((got[0] != fda).sum()) + int((got[1] != fdb).sum())
+    print("rglru backward planted faults (unequal elements, must exceed the limit 0): "
+          + ", ".join(f"{k} {n}" for k, n in faults.items()))
+    if min(faults.values()) == 0:
+        fail(f"a planted fault in K5's backward stays within its limit: {faults}")
+    again = k5.rglru_scan_backward(a, h, dh, h0)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail("K5's backward gave other bits when repeated")
+    print("rglru backward repeated: identical bits")
+    ms = device_ms(lambda: k5.rglru_scan_backward(a, h, dh, h0))
+    plain_ms = time_ms(lambda: rglru_scan_bwd_ref(a, h, dh, h0), 3)
+    leaves = [x.clone().requires_grad_(True) for x in (a, bx, h0)]
+    out = rglru_scan_ref(*leaves)
+    auto_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dh, retain_graph=True), 3)
+    del out, leaves
+    bnd = bound(20 * t * w + 8 * w, 3 * t * w, F32_FLOPS_PER_S)
+    print(f"rglru backward (1, {t}, {w}): {ms:.4f} ms, bound {bnd[0]:.6f} ms by {bnd[1]} "
+          f"({bnd[0] / ms:.2%} of bound), plain rglru_scan_bwd_ref {plain_ms:.4f} ms, plain "
+          f"autograd {auto_ms:.4f} ms, library: none (no PyTorch call computes the reverse "
+          f"scan) [{card}]")
+    k5_entry = {
+        "name": "rglru_scan_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_bwd.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:23",
+        "max_abs_err": 0.0, "unequal_elements": k5_unequal, "planted_faults": faults,
+        "shape": [1, t, w], "ms": ms, "plain_ms": plain_ms, "plain_autograd_ms": auto_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    del a, bx, dh, h0, h, got, again
+    free_device_memory()
+
+    # -- K4 -----------------------------------------------------------------
+    rcfg = get_config(RWKV)
+    nh, hd = rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim
+
+    def k4_inputs(t, decay, with_s0):
+        def f(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+        r, k, v = (f(1, t, nh, hd, scale=sc).to(torch.bfloat16) for sc in (1.0, 0.3, 0.3))
+        w = torch.exp(-torch.exp(decay + f(1, t, nh, hd, scale=0.5)))
+        s0 = f(1, nh, hd, hd, scale=0.3) if with_s0 else None
+        return r, k, v, w, f(nh, hd, scale=0.3), s0, f(1, t, nh, hd), f(1, nh, hd, hd)
+
+    def k4_autograd(r, k, v, w, u, s0, do, dst):
+        leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u)] + \
+            ([s0.detach().requires_grad_(True)] if s0 is not None else [])
+        o, st = wkv6_ref(*leaves[:5], s0=leaves[5] if s0 is not None else None)
+        return torch.autograd.grad((o, st), leaves, (do, dst))
+
+    k4_res, k4_worst, k4_err = {}, 0.0, 0.0
+    cases = [(t, d, s) for t in WKV_BWD_T for d in WKV_BWD_DECAYS for s in (False, True)]
+    cases.append((WKV_BWD_HEADLINE_T, "mid", True))
+    for t, dname, with_s0 in cases:
+        x = k4_inputs(t, WKV_BWD_DECAYS[dname], with_s0)
+        got = k4.wkv6_backward(*x)
+        auto = k4_autograd(*x)
+        ref = wkv6_bwd_ref(*x)
+        n = len(auto)
+        share = max(wkv_limit_share(got[:n], auto), wkv_limit_share(got[:n], ref[:n]))
+        err = max(float((g.float() - y.float()).abs().max()) for g, y in zip(got, auto))
+        k4_res[f"T {t} w {dname}{' s0' if with_s0 else ''}"] = {"limit_share": share,
+                                                               "max_abs_err": err}
+        k4_worst, k4_err = max(k4_worst, share), max(k4_err, err)
+        del x, got, auto, ref
+    torch.cuda.synchronize()
+    print(f"wkv6 backward (K4) against the CUDA autograd of wkv6_ref and wkv6_bwd_ref at "
+          f"(1, T, {nh}, {hd}), bf16 r, k, v, T {WKV_BWD_T} x w near 1 / mid / near 0 x "
+          f"s0 given or not, and T {WKV_BWD_HEADLINE_T}: worst share of the limit "
+          f"{k4_worst:.4f} (limit {WKV_BWD_REL} of max |ref| + one bf16 ulp), max_abs_err "
+          f"{k4_err:.3e}; by case: " + ", ".join(
+              f"{c} {v['limit_share']:.3f}" for c, v in k4_res.items()))
+    if k4_worst > 1.0:
+        fail(f"K4's backward disagrees with its plain versions: {k4_worst:.3f} of its limit")
+    x = k4_inputs(WKV_BWD_HEADLINE_T, 0.0, True)
+    r, k, v, w, u, s0, do, dst = x
+    got = k4.wkv6_backward(*x)
+    faults = {"u dropped": wkv_limit_share(got, k4_autograd(r, k, v, w, u * 0, s0, do, dst)),
+              "s0 not carried in": wkv_limit_share(
+                  got, k4_autograd(r, k, v, w, u, torch.zeros_like(s0), do, dst))}
+    print("wkv6 backward planted faults (share of the limit, must exceed 1): "
+          + ", ".join(f"{f} {s:.1f}" for f, s in faults.items()))
+    if min(faults.values()) <= 1.0:
+        fail(f"a planted fault in K4's backward stays within its limit: {faults}")
+    again = k4.wkv6_backward(*x)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        fail("K4's backward gave other bits when repeated")
+    print("wkv6 backward repeated: identical bits")
+    ms = device_ms(lambda: k4.wkv6_backward(*x), 10)
+    plain_ms = time_ms(lambda: wkv6_bwd_ref(*x), 1, warmup=1)
+    leaves = [y.detach().requires_grad_(True) for y in (r, k, v, w, u, s0)]
+    o, st = wkv6_ref(*leaves)
+    auto_ms = time_ms(lambda: torch.autograd.grad((o, st), leaves, (do, dst),
+                                                  retain_graph=True), 1, warmup=1)
+    del o, st, leaves
+    t = WKV_BWD_HEADLINE_T
+    elems = t * nh * hd
+    nbytes = elems * (3 * 2 + 4 + 4 + 3 * 2 + 4) + 3 * nh * hd * hd * 4 + 2 * nh * hd * 4
+    bnd = bound(nbytes, 14 * elems * hd, F32_FLOPS_PER_S)
+    print(f"wkv6 backward (1, {t}, {nh}, {hd}) bf16: {ms:.4f} ms, bound {bnd[0]:.6f} ms by "
+          f"{bnd[1]} ({bnd[0] / ms:.2%} of bound; 14 flops a (t, h, i, j), {nbytes} B), "
+          f"plain wkv6_bwd_ref {plain_ms:.4f} ms, plain autograd {auto_ms:.4f} ms, "
+          f"library: none (no PyTorch call computes the WKV recurrence) [{card}]")
+    k4_entry = {
+        "name": "wkv6_backward", "route": "cuda", "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:27", "max_abs_err": k4_err,
+        "limit_share": k4_worst, "planted_faults": faults, "shape": [1, t, nh, hd],
+        "ms": ms, "plain_ms": plain_ms, "plain_autograd_ms": auto_ms, "bound_ms": bnd[0],
+        "bound_by": bnd[1], "library_ms": None, "cases": k4_res}
+    del x, got, again
+    free_device_memory()
+    return {"rglru_scan_backward": k5_entry, "wkv6_backward": k4_entry,
+            "k5_cases": k5_res}
+
+
+def arch_phase(dev, card) -> dict:
+    """Phases 7g-7i for rwkv6-3b and recurrentgemma-9b: a full-width train
+    step, kernel path against plain path (bf16 at a cut depth; f32 at fewer
+    layers with two planted faults in the backward kernel); the trainer at
+    full width; ``python -m repro_torch.launch.train --smoke`` on the card."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.kernels.rglru import kernel as k5
+    from repro_torch.kernels.rwkv6 import kernel as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.optimizer import AdamWConfig
+
+    def zero():
+        k3.flash_attention.launches = k3.flash_attention_backward.launches = 0
+        k4.wkv6_cuda.launches = k4.wkv6_backward.launches = 0
+        k5.rglru_scan_cuda.launches = k5.rglru_scan_backward.launches = 0
+
+    def launched():
+        return {"flash_attention": k3.flash_attention.launches,
+                "flash_attention_backward": k3.flash_attention_backward.launches,
+                "wkv6": k4.wkv6_cuda.launches, "wkv6_backward": k4.wkv6_backward.launches,
+                "rglru": k5.rglru_scan_cuda.launches,
+                "rglru_scan_backward": k5.rglru_scan_backward.launches}
+
+    def want_launches(cfg, steps=1, microbatches=1):
+        kinds = cfg.layer_kinds()
+        fwd = (2 if cfg.remat else 1) * steps * microbatches
+        bwd = steps * microbatches
+        n = {kind: kinds.count(kind) for kind in set(kinds)}
+        att = n.get("full", 0) + n.get("local", 0)
+        return {"flash_attention": att * fwd, "flash_attention_backward": att * bwd,
+                "wkv6": n.get("rwkv", 0) * fwd, "wkv6_backward": n.get("rwkv", 0) * bwd,
+                "rglru": n.get("rglru", 0) * fwd,
+                "rglru_scan_backward": n.get("rglru", 0) * bwd}
+
+    def loss_and_grads(model, params, batch):
+        flat = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
+        loss, _ = model.loss_fn(_tree.unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                      for p, g in zip(flat, grads)]
+
+    results = {}
+    for arch in (RWKV, GRIFFIN):
+        base = get_config(arch)
+        out = results[arch] = {}
+        it = make_batch_iterator(base.vocab_size, ARCH_STEP_SEQ, ARCH_STEP_BATCH, seed=0)
+        batch = {name: torch.as_tensor(x, device=dev) for name, x in next(it).items()}
+
+        def compare(label, tcfg, faults=None):
+            kmodel, pmodel = build_model(tcfg, device=dev), build_model(
+                tcfg, use_kernel=False, device=dev)
+            params = kmodel.init_params(torch.Generator(device=dev).manual_seed(0))
+            paths = [p for p, _ in _tree.flatten_with_path(params)]
+            zero()
+            lk, gk = loss_and_grads(kmodel, params, batch)
+            counts = launched()
+            zero()
+            lp, gp = loss_and_grads(pmodel, params, batch)
+            plain_counts = launched()
+            torch.cuda.synchronize()
+
+            def gaps(grads):
+                return {path: float((x.float() - y.float()).abs().max()) /
+                        max(float(y.float().abs().max()), 1e-30)
+                        for path, x, y in zip(paths, grads, gp)}
+
+            g = gaps(gk)
+            worst_leaf = max(g, key=g.get)
+            l2 = float(torch.sqrt(sum(((x.float() - y.float()) ** 2).sum() for x, y in zip(gk, gp))
+                                  / sum((y.float() ** 2).sum() for y in gp)))
+            limit, loss_limit = ARCH_GRAD_LIMITS[arch, tcfg.dtype]
+            print(f"{label}: loss kernel {lk:.6f} plain {lp:.6f} (gap {abs(lk - lp):.3e}, "
+                  f"limit {loss_limit}); launches {counts} (plain path {sum(plain_counts.values())}"
+                  f"); worst leaf gradient gap {g[worst_leaf]:.3e} of its max ({worst_leaf}; "
+                  f"limit {limit}); median leaf {float(np.median(list(g.values()))):.3e}; the "
+                  f"whole gradient's L2 gap {l2:.3e}"
+                  + (f" (limit {RWKV_BF16_L2})" if limit is None else ""))
+            if counts != want_launches(tcfg) or any(plain_counts.values()):
+                fail(f"{label}: launches {counts} (plain {plain_counts}), want "
+                     f"{want_launches(tcfg)} and none on the plain path")
+            if not (abs(lk - lp) <= loss_limit and
+                    (g[worst_leaf] <= limit if limit is not None else l2 <= RWKV_BF16_L2)):
+                fail(f"{label}: the kernel path's loss or gradient is off the plain path's")
+            silent = [p for p, x, y in zip(paths, gk, gp)
+                      if float(y.float().abs().max()) > 0 and not float(x.float().abs().max()) > 0]
+            if silent:
+                fail(f"{label}: no gradient reached {silent[:5]} on the kernel path")
+            res = {"loss_kernel": lk, "loss_plain": lp, "worst_leaf": worst_leaf,
+                   "worst_leaf_gap": g[worst_leaf], "limit": limit, "launches": counts,
+                   "median_leaf_gap": float(np.median(list(g.values()))), "l2_gap": l2}
+            if faults:
+                res["planted_faults"] = {}
+                for fname, (module, attr, fn) in faults.items():
+                    real = getattr(module, attr)
+                    fn.launches = 0
+                    setattr(module, attr, fn)
+                    try:
+                        fg = gaps(loss_and_grads(kmodel, params, batch)[1])
+                    finally:
+                        setattr(module, attr, real)
+                    fworst = max(fg.values())
+                    print(f"{label}, planted fault '{fname}': worst leaf gradient gap "
+                          f"{fworst:.3e} ({fworst / limit:.1f}x the limit)", flush=True)
+                    if fworst <= limit:
+                        fail(f"{label}: planted fault '{fname}' stays within the limit")
+                    res["planted_faults"][fname] = fworst
+            del kmodel, pmodel, params, gk, gp
+            free_device_memory()
+            return res
+
+        # -- 7g ----------------------------------------------------------------
+        stamp(f"7g {arch}")
+        depth = POLICY_DEPTH[arch]
+        print(f"{arch} train step: cut to {depth} of {base.num_layers} layers and "
+              f"{ARCH_STEP_BATCH} x {ARCH_STEP_SEQ} tokens, full width")
+        out["step_bf16"] = compare(f"{arch} bf16 train step, {depth} layers",
+                                   dataclasses.replace(base, num_layers=depth))
+        if arch == RWKV:
+            real = k4.wkv6_backward
+            faults = {
+                "bonus u dropped in the backward": (k4, "wkv6_backward", lambda r, k, v, w, u, s0, do, dst=None: real(r, k, v, w, u * 0, s0, do, dst)),
+                "decay left out of the state's gradient": (k4, "wkv6_backward", lambda r, k, v, w, u, s0, do, dst=None: real(r, k, v, torch.ones_like(w), u, s0, do, dst))}
+        else:
+            real = k5.rglru_scan_backward
+            faults = {
+                "gradient not carried back a step": (k5, "rglru_scan_backward", lambda a, h, dh, h0=None: real(a * 0, h, dh, h0)),
+                "h_t in place of h_{t-1}": (k5, "rglru_scan_backward", lambda a, h, dh, h0=None: real(a, torch.cat([h[:, 1:], h[:, -1:]], 1).contiguous(), dh, h0))}
+        nl = ARCH_F32_LAYERS[arch]
+        print(f"{arch} f32 train step: cut to {nl} of {base.num_layers} layers at full width")
+        out["step_f32"] = compare(f"{arch} f32 train step, {nl} layers",
+                                  dataclasses.replace(base, dtype="float32", num_layers=nl),
+                                  faults)
+
+        # -- 7h ----------------------------------------------------------------
+        stamp(f"7h {arch}")
+        spec = ARCH_TRAIN[arch]
+        tcfg = base if spec["layers"] is None else dataclasses.replace(
+            base, num_layers=spec["layers"])
+        steps, bsz = spec["steps"], spec["batch"]
+        print(f"{arch} trainer: {tcfg.num_layers} of {base.num_layers} layers at full width"
+              + (" (whole)" if spec["layers"] is None else " (a cut: whole, its params, f32 "
+                 "master and moments, old and new at the update, do not fit one 80 GB card)")
+              + f", {steps} steps of {bsz} x {ARCH_TRAIN_SEQ}, {tcfg.microbatches} "
+              f"microbatches, AdamW lr 3e-3 with 1 warmup step")
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        logs = []
+        model = build_model(tcfg, max_pos=ARCH_TRAIN_SEQ, device=dev)
+        trainer = Trainer(model, make_batch_iterator(tcfg.vocab_size, ARCH_TRAIN_SEQ, bsz, seed=0),
+                          LoopConfig(total_steps=steps, checkpoint_every=10 ** 9,
+                                     log_every=max(steps // 5, 1)),
+                          AdamWConfig(lr=3e-3, warmup_steps=max(steps // 10, 1),
+                                      total_steps=steps), log_fn=logs.append)
+        step_fn, times = trainer.step_fn, []
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step_fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        trainer.step_fn = timed
+        zero()
+        t0 = time.perf_counter()
+        run = trainer.run(seed=0)
+        wall = time.perf_counter() - t0
+        counts = launched()
+        peak = torch.cuda.max_memory_allocated()
+        losses = run["losses"]
+        n_params = sum(x.numel() for x in _tree.leaves(run["params"]))
+        tokens = bsz * ARCH_TRAIN_SEQ
+        steady = float(np.mean(times[2:]))
+        bound_ms = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+        print("\n".join(logs))
+        print(f"{arch} trainer: {n_params} params, {steps} steps in {wall:.2f} s (init "
+              f"included); ms a step first {times[0]:.1f}, steady mean {steady:.2f} (steps "
+              f"3-{steps}), {tokens / steady * 1e3:.0f} tokens/s; 6 N tokens bound "
+              f"{bound_ms:.2f} ms, {bound_ms / steady:.1%} of it; launches {counts}; peak "
+              f"device memory {peak} B ({peak / 1e9:.2f} GB) [{card}]")
+        print(f"{arch} trainer losses: {[round(x, 4) for x in losses]}")
+        want = want_launches(tcfg, steps, tcfg.microbatches)
+        if counts != want:
+            fail(f"{arch} trainer: launches {counts}, want {want}")
+        if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
+            fail(f"{arch} trainer: the loss did not fall: {losses}")
+        from torch.profiler import ProfilerActivity, profile
+        pbatch = {name: torch.as_tensor(x, device=dev) for name, x in next(
+            make_batch_iterator(tcfg.vocab_size, ARCH_TRAIN_SEQ, bsz, seed=1)).items()}
+        params, opt = run["params"], run["opt_state"]
+        del run
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warm_profiler()
+            t0 = time.perf_counter()
+            step_fn(params, opt, pbatch)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        spans = drop_warmup(device_spans(prof))
+        busy = busy_ms(spans)
+        fams = {"wkv6_bwd": "K4 backward", "wkv6_kernel": "K4 forward (phase 1)",
+                "wkv6_carry": "K4 forward (carry)", "wkv6_fix": "K4 forward (fix)",
+                "rglru_bwd": "K5 backward", "rglru_kernel": "K5 forward",
+                "attn_bwd": "K3 backward", "flash_attention_kernel": "K3 forward"}
+        by_family = {label: sum(e - s for n, s, e in spans if fam in n) / 1e6
+                     for fam, label in fams.items()}
+        by_family = {k: x for k, x in by_family.items() if x > 0}
+        print(f"{arch} profiled train step: wall {prof_ms:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / prof_ms:.4f}; kernel device ms a step: " + ", ".join(
+                  f"{f} {x:.2f}" for f, x in by_family.items()))
+        print("device time by function over the profiled step:")
+        print("\n".join(top_kernels(spans, 10)))
+        out["trainer"] = {
+            "layers": tcfg.num_layers, "params": n_params, "steps": steps, "batch": bsz,
+            "seq": ARCH_TRAIN_SEQ, "losses": losses, "ms_per_step": times,
+            "steady_ms_per_step": steady, "tokens_per_s": tokens / steady * 1e3,
+            "bound_ms_6NT": bound_ms, "bound_share": bound_ms / steady, "launches": counts,
+            "peak_bytes": peak, "profiled_step": {
+                "wall_ms": prof_ms, "busy_ms": busy, "idle_share": 1 - busy / prof_ms,
+                "kernel_device_ms": by_family}}
+        del model, trainer, params, opt, prof, spans, step_fn
+        free_device_memory()
+
+        # -- 7i ----------------------------------------------------------------
+        stamp(f"7i {arch}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+               "--steps", str(CLI_STEPS)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        print(f"$ {' '.join(cmd[1:])}  (exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s): " + " | ".join(lines[-2:]))
+        if proc.returncode or len(lines) < 2 or not lines[-1].startswith("last-10"):
+            fail(f"{' '.join(cmd[1:])} failed on the card:\n{proc.stdout[-2000:]}"
+                 f"\n{proc.stderr[-4000:]}")
+        out["cli"] = {"command": " ".join(cmd[1:]), "lines": lines[-2:]}
+    return results
 
 
 T_START = time.perf_counter()
@@ -1687,11 +2240,14 @@ def main() -> None:
 
     bwd_smem = []
     for hd in k3_kernel.HEAD_DIMS:
-        smem = (ctypes.c_int * 3)()
+        smem = (ctypes.c_int * 5)()
         if k3_kernel._bwd_lib().flash_attention_bwd_smem_bytes(hd, smem) == 0:
-            bwd_smem.append(f"hd {hd}: {smem[0]}/{smem[1]}/{smem[2]} B")
-    print("flash_attention backward: dynamic shared memory per block (prep/dq/dkdv): "
-          + ", ".join(bwd_smem))
+            bwd_smem.append(f"hd {hd}: f32 {smem[0]}/{smem[1]}/{smem[2]} B, bf16 "
+                            f"{smem[3]}/{smem[4]} B")
+    print("flash_attention backward: dynamic shared memory per block (f32 prep/dq/dkdv, "
+          "bf16 tensor-core dq/dkdv): " + ", ".join(bwd_smem))
+    print(f"wkv6 backward: {wkv_kernel._bwd_lib().wkv6_bwd_sub_steps()}-step sub-chunks; "
+          f"rglru backward: {rglru_kernel._bwd_lib().rglru_bwd_stage_steps()}-step stages")
     for two_step, name in ((False, "jacobi_sweep (K1)"), (True, "jacobi_two_step (K2)")):
         g = k12_kernel.geometry(two_step)
         print(f"{name}: instance {g['variant']} of {k12_kernel.variants(two_step)}, tile "
@@ -2657,6 +3213,10 @@ def main() -> None:
 
     # -- 7. training: K3's backward, the train step, the trainer, resume --
     training, k3_backward = train_phase(dev, card)
+    recurrent = recurrent_backward_phase(dev, card)
+    training["archs"] = arch_phase(dev, card)
+    training["recurrent_backward"] = {k: recurrent[k] for k in (
+        "wkv6_backward", "rglru_scan_backward")}
 
     # -- 8. result lines --------------------------------------------------
     stamp(8)
@@ -2706,6 +3266,12 @@ def main() -> None:
         for arch in (QWEN, GRIFFIN, QWEN3)}, shapes_hd256=k3g, shapes_new=k3n,
         plain_long_prefill_vs_k3=long_plain)
     kernels.append(k3_backward)
+    for name, arch in (("wkv6_backward", RWKV), ("rglru_scan_backward", GRIFFIN)):
+        trained = training["archs"][arch]["trainer"]
+        kernels.append({**recurrent[name], "launches": trained["launches"][name],
+                        "path": f"Trainer.run ({arch}, {trained['layers']} layers, "
+                                f"{trained['steps']} steps of {trained['batch']} x "
+                                f"{trained['seq']})"})
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))

@@ -53,6 +53,10 @@
 //     m = -inf, l = 0 there and weighs 0 in the merge, never -inf - -inf.
 //     The merge runs on one SM and grows with the chunks, so split_plan
 //     keeps them near sqrt(keys / (2 * rows)) and within one wave;
+//   * under grad the caller may ask for each row's log-sum-exp and for o
+//     in f32 before its rounding (null pointers otherwise, so serving's
+//     bits and launches are the same): K3's backward
+//     (flash_attention_bwd.cu) reads both;
 //   * each block computes its own key range as before (causal blocks stop
 //     at their last query, windowed ones start at their first query's
 //     window), and inputs are strided views with a contiguous head dim, so
@@ -84,6 +88,11 @@ struct Args {
   int row_tiles, splits, tiles_per_chunk;
   float* ws;                              // split partials (splits > 1)
   int* tickets;                           // one per row tile, all 0 between launches
+  // for the backward, only when a gradient is asked (null in serving): each
+  // row's log-sum-exp of its scaled scores (B, Hq, Tq), and o before its
+  // rounding to bf16, in f32 with o's strides
+  float* lse;
+  float* o32;
 };
 
 // The keys any row of query positions [t0, t1) can see.
@@ -213,14 +222,25 @@ __device__ __forceinline__ void axpy4(float4& x, float w, const float4& y) {
 }
 
 // o[t, h, d .. d + 3] = x / l for block row r (position t0 + r / G, head
-// kvh * G + r % G)
-__device__ __forceinline__ void store4(__nv_bfloat16* o, const Args& a, int t0, int kvh,
-                                       int group, int r, int d, float4 x, float l) {
+// kvh * G + r % G); the same f32 values into o32 when it is not null
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float* o32, const Args& a, int t0,
+                                       int kvh, int group, int r, int d, float4 x, float l) {
   const float den = fmaxf(l, 1e-37f);
   const int t = t0 + r / group, h = kvh * group + r % group;
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + h * a.so[1] + t * a.so[2] + d);
-  dst[0] = __floats2bfloat162_rn(x.x / den, x.y / den);
-  dst[1] = __floats2bfloat162_rn(x.z / den, x.w / den);
+  const float4 y = make_float4(x.x / den, x.y / den, x.z / den, x.w / den);
+  const long long off = h * a.so[1] + t * a.so[2] + d;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(o + off);
+  dst[0] = __floats2bfloat162_rn(y.x, y.y);
+  dst[1] = __floats2bfloat162_rn(y.z, y.w);
+  if (o32 != nullptr) *reinterpret_cast<float4*>(o32 + off) = y;
+}
+
+// each row's log-sum-exp m + log l (+inf for a row that saw no key, whose
+// weights the backward then takes as 0), when the caller asked for it
+__device__ __forceinline__ void store_lse(const Args& a, int b, int t0, int kvh, int group,
+                                          int r, float m, float l) {
+  const int t = t0 + r / group, h = kvh * group + r % group;
+  a.lse[((long long)b * a.hq + h) * a.tq + t] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 // Grid: (row_tiles * splits, hkv, batch); block x = row tile * splits + split.
@@ -250,6 +270,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
   const __nv_bfloat16* vp =
       static_cast<const __nv_bfloat16*>(a.v) + b * a.sv[0] + kvh * a.sv[1];
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.so[0];
+  float* o32 = a.o32 != nullptr ? a.o32 + b * a.so[0] : nullptr;
 
   int k_begin, k_end;
   key_range(a, t0, t1, k_begin, k_end);
@@ -442,8 +463,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
       const int r = e / V4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int w = 0; w < KW; ++w) axpy4(x, wgt[r * KW + w], part4[w * ROWS * V4 + e]);
-      store4(o, a, t0, kvh, group, r, (e % V4) * 4, x, row_l[r]);
+      store4(o, o32, a, t0, kvh, group, r, (e % V4) * 4, x, row_l[r]);
     }
+    if (a.lse != nullptr && tid < valid_rows)
+      store_lse(a, b, t0, kvh, group, tid, row_m[tid], row_l[tid]);
     return;
   }
 
@@ -485,6 +508,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
       lsum += wt * __ldcg(ws_l + first + sp * ROWS + tid);
     }
     row_l[tid] = lsum;
+    if (a.lse != nullptr && tid < valid_rows) store_lse(a, b, t0, kvh, group, tid, mx, lsum);
   }
   __syncthreads();
   // U independent loads in flight per thread and split, summed in split order
@@ -504,7 +528,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_kernel(Args a) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int e = e0 + u * THREADS;
-      if (e < n4) store4(o, a, t0, kvh, group, e / V4, (e % V4) * 4, x[u], row_l[e / V4]);
+      if (e < n4) store4(o, o32, a, t0, kvh, group, e / V4, (e % V4) * 4, x[u], row_l[e / V4]);
     }
   }
   if (tid == 0) a.tickets[slot] = 0;   // ready for the next launch
@@ -794,13 +818,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
 // key range is cut into `splits` chunks of `tiles_per_chunk` tiles.  With
 // splits > 1, ws holds (2 + hd) * batch * hkv * row_tiles * splits * rows
 // floats and tickets batch * hkv * row_tiles zeros (left zero).  All rows of
-// q, k and v start 16-byte aligned.
+// q, k and v start 16-byte aligned.  lse (batch * hq * tq floats) and o32
+// (f32, o's strides, 16-byte aligned) are null unless the backward will
+// need them; they change none of o's bits.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* o,
                                 int batch, int hq, int hkv, int tq, int tk, int hd,
                                 const long long* strides, int causal, int window,
                                 int q_offset, float scale, int rows, int bk, int qt,
                                 int splits, int tiles_per_chunk, float* ws, int* tickets,
-                                void* stream) {
+                                float* lse, float* o32, void* stream) {
   if (batch <= 0 || tq <= 0 || hkv <= 0 || hq % hkv || qt <= 0 ||
       qt * (hq / hkv) > rows || batch > 65535 || hkv > 65535 || splits <= 0 ||
       splits > MAX_SPLITS || tiles_per_chunk <= 0 ||
@@ -812,6 +838,8 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v, voi
   a.tiles_per_chunk = tiles_per_chunk;
   a.ws = ws;
   a.tickets = tickets;
+  a.lse = lse;
+  a.o32 = o32;
   dim3 grid(a.row_tiles * splits, hkv, batch);
   return (int)dispatch_bf16(hd, rows, &a, bk, grid, static_cast<cudaStream_t>(stream),
                             nullptr);

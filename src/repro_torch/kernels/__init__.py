@@ -10,10 +10,12 @@ import torch
 
 def refuse_grad(kernel: str, item: str, *xs) -> None:
     """Raise ``RuntimeError`` when grad mode is on and an input in ``xs``
-    requires grad: ``kernel`` has no backward on the card yet (ROADMAP
-    ``item``), and its result, written through ``ctypes``, would carry no
+    requires grad.  K1 and K2 (the Jacobi sweeps) call it: neither package
+    differentiates the stencil, so they have no backward kernel (ROADMAP
+    ``item``), and a result written through ``ctypes`` would carry no
     autograd history, so every gradient through it would be silently
-    missing."""
+    missing.  K3, K4 and K5 run as ``torch.autograd.Function``s in grad
+    mode instead (``FlashAttentionFn``, ``WKV6Fn``, ``RGLRUScanFn``)."""
     if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
                                        for x in xs):
         raise RuntimeError(

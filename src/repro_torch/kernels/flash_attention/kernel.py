@@ -17,13 +17,16 @@ divide raise ``ValueError`` — but do not set the CUDA tiling, which is
 fixed by the kernel and :func:`split_plan`.
 
 The gradient: :class:`FlashAttentionFn` is K3 as a
-``torch.autograd.Function``.  Its forward is the launch above, unchanged;
-its backward is :func:`flash_attention_backward`, three hand-written
-kernels in ``repro_torch/csrc/flash_attention_bwd.cu`` (log-sum-exp and
-rowsum(dO o O), then dQ, then dK and dV; f32 arithmetic, no atomics, so
-the same bits on every call).  The model enters the Function only when
-grad mode is on and an input requires grad, so serving launches K3
-exactly as before.
+``torch.autograd.Function``.  Its forward is the launch above; in bf16 it
+also asks the kernel for each row's log-sum-exp and for o in f32 before
+its rounding (:func:`forward_with_stats`; o's bits are the same).  Its
+backward is :func:`flash_attention_backward`, three hand-written kernels
+in ``repro_torch/csrc/flash_attention_bwd.cu``: in bf16, D = rowsum(dO o
+O) from that f32 O, then dQ, then dK and dV on tensor cores (``mma.sync``,
+P and dS as bf16 hi + lo pairs); in f32, the SIMT kernels (the log-sum-exp
+and D recomputed, then dQ, then dK and dV).  No atomics, so the same bits
+on every call.  The model enters the Function only when grad mode is on
+and an input requires grad, so serving launches K3 exactly as before.
 """
 from __future__ import annotations
 
@@ -125,7 +128,7 @@ def _lib() -> ctypes.CDLL:
         p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, p]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_bf16_launch.argtypes = [
-        p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, i, i, i, i, p, p, p]
+        p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, i, i, i, i, p, p, p, p, p]
     lib.flash_attention_bf16_launch.restype = i
     lib.flash_attention_smem_bytes.argtypes = [i, i, i]
     lib.flash_attention_smem_bytes.restype = i
@@ -229,10 +232,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     if bf16:
-        rows = variant(hq, hkv, tq, hd)[0]
-        plan = split_plan(b, hq, hkv, tq, tk, hd, slots=_slots(q.device.index or 0, rows, hd),
-                          causal=bool(causal), window=window, q_offset=q_offset)
-        run_bf16(q, k, v, out, plan, causal=causal, window=window, q_offset=q_offset)
+        _run_planned(q, k, v, out, causal=causal, window=window, q_offset=q_offset)
     else:
         lib = _lib()
         err = lib.flash_attention_launch(
@@ -252,11 +252,56 @@ def _strides(*xs: torch.Tensor):
     return (ctypes.c_longlong * 12)(*(x.stride(i) for x in xs for i in range(3)))
 
 
+def _run_planned(q, k, v, out, *, causal, window, q_offset, lse=None, o32=None) -> None:
+    """The bf16 launch with :func:`split_plan`'s plan (counts nothing)."""
+    b, hq, tq, hd = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rows = variant(hq, hkv, tq, hd)[0]
+    plan = split_plan(b, hq, hkv, tq, tk, hd, slots=_slots(q.device.index or 0, rows, hd),
+                      causal=bool(causal), window=window, q_offset=q_offset)
+    run_bf16(q, k, v, out, plan, causal=causal, window=window, q_offset=q_offset,
+             lse=lse, o32=o32)
+
+
+def forward_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0, q_offset: int = 0):
+    """K3's bf16 forward plus what its backward reads: (out, lse, o32), lse
+    (B, Hq, Tq) f32 each row's log-sum-exp of its scaled scores (+inf for a
+    row that sees no key), o32 the output before its rounding to bf16, in
+    f32 (out's layout).  ``out`` has the bits of :func:`flash_attention`'s.
+    Counts nothing: :class:`FlashAttentionFn` counts its forward as one K3
+    launch, and :func:`flash_attention_backward` calls this when it is not
+    handed the statistics."""
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16 or q.device.type != "cuda":
+        raise TypeError("forward_with_stats takes bfloat16 CUDA tensors")
+    b, hq, tq, hd = q.shape
+    if hd not in HEAD_DIMS or hq // k.shape[1] > MAX_ROWS:
+        raise ValueError(f"head dim {hd} or group {hq // k.shape[1]} not compiled")
+    if any(x.stride(3) != 1 for x in (q, k, v)) or not all(rows_aligned(x) for x in (q, k, v)):
+        raise ValueError("forward_with_stats takes rows that start on 16 bytes with a "
+                         "contiguous head dim")
+    if max(tq, k.shape[2], abs(q_offset), window) >= 2 ** 31 or b > 65535 or \
+            k.shape[1] > 65535:
+        raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} exceeds the "
+                         f"kernel's int32 positions or grid")
+    out = torch.empty((b, tq, hq, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    o32 = torch.empty((b, tq, hq, hd), dtype=torch.float32, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    if out.numel():
+        _run_planned(q, k, v, out, causal=causal, window=window, q_offset=q_offset,
+                     lse=lse, o32=o32)
+    return out, lse, o32
+
+
 def run_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-             plan: Plan, *, causal: bool, window: int, q_offset: int) -> None:
+             plan: Plan, *, causal: bool, window: int, q_offset: int,
+             lse: torch.Tensor | None = None, o32: torch.Tensor | None = None) -> None:
     """Launch the bf16 kernel on inputs :func:`flash_attention` has checked,
     cut as ``plan`` says (the wrapper passes :func:`split_plan`'s; the
-    chunk-size sweep passes others).  Counts nothing."""
+    chunk-size sweep passes others); ``lse`` and ``o32`` (out's strides)
+    receive :func:`forward_with_stats`'s statistics when given.  Counts
+    nothing."""
     b, hq, tq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -272,7 +317,9 @@ def run_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
         b, hq, hkv, tq, tk, hd, _strides(q, k, v, out), int(causal), int(window),
         int(q_offset), hd ** -0.5, plan.rows, plan.bk, plan.qt, plan.splits,
         plan.tiles_per_chunk, None if ws is None else ws.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), stream)
+        None if tickets is None else tickets.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if o32 is None else o32.data_ptr(),
+        stream)
     _build.check(lib, err, "flash_attention_kernel launch")
 
 
@@ -282,7 +329,7 @@ def _bwd_lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bwd_launch.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, p]
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, i, i, i, f, i, p]
     lib.flash_attention_bwd_launch.restype = i
     lib.flash_attention_bwd_smem_bytes.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     lib.flash_attention_bwd_smem_bytes.restype = i
@@ -292,16 +339,18 @@ def _bwd_lib() -> ctypes.CDLL:
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              dout: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             q_offset: int = 0
+                             q_offset: int = 0, stats=None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention(q, k, v, ...)`` for the gradient
-    ``dout`` of its result, each in its input's dtype and shape.  The
-    kernels recompute what they need of the forward (each row's log-sum-exp
-    and rowsum(dO o O)) from q, k, v and dout, so the result is not needed.
+    ``dout`` of its result, each in its input's dtype and shape.
 
-    A CUDA tensor launches the backward kernels (head dims ``HEAD_DIMS``,
-    ``ValueError`` otherwise); a CPU tensor takes the plain version,
-    autograd through ``mha_ref``."""
+    In bf16 the kernels read the forward's (lse, o32) (``stats``, as
+    :func:`forward_with_stats` returns them after the output); without
+    them this call runs K3's forward once more to make them.  In f32 they
+    recompute what they need (each row's log-sum-exp and rowsum(P o dP))
+    and ``stats`` is ignored.  A CUDA tensor launches the backward kernels
+    (head dims ``HEAD_DIMS``, ``ValueError`` otherwise); a CPU tensor takes
+    the plain version, autograd through ``mha_ref``."""
     _check(q, k, v)
     b, hq, tq, hd = q.shape
     if dout.shape != q.shape:
@@ -320,23 +369,32 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(k.shape[2], tq, abs(q_offset), window) >= 2 ** 31 or b > 65535 or hq > 65535:
         raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} exceeds the "
                          f"kernels' int32 positions or grid")
+    bf16 = q.dtype == torch.bfloat16
     dout = dout.to(q.dtype)
-    if dout.stride(3) != 1:
+    if dout.stride(3) != 1 or (bf16 and not rows_aligned(dout)):
         dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    if bf16:
+        if stats is None:
+            stats = forward_with_stats(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)[1:]
+        lse, o32 = stats
+    else:
+        lse, o32 = torch.empty_like(delta), None
     hkv, tk = k.shape[1], k.shape[2]
     xs = (q, k, v, dout, dq, dk, dv)
-    strides = (ctypes.c_longlong * 21)(*(x.stride(i) for x in xs for i in range(3)))
+    strides = (ctypes.c_longlong * 24)(
+        *(x.stride(i) for x in xs for i in range(3)),
+        *((o32.stride(i) for i in range(3)) if o32 is not None else (0, 0, 0)))
     lib = _bwd_lib()
     err = lib.flash_attention_bwd_launch(
         *(x.data_ptr() for x in xs), lse.data_ptr(), delta.data_ptr(),
+        None if o32 is None else o32.data_ptr(),
         b, hq, hkv, tq, tk, hd, strides, int(causal), int(window), int(q_offset),
-        hd ** -0.5, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        hd ** -0.5, int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attention backward launch")
     flash_attention_backward.launches += 1
     return dq, dk, dv
@@ -347,21 +405,29 @@ flash_attention_backward.launches = 0
 
 class FlashAttentionFn(torch.autograd.Function):
     """K3 with its gradient: ``FlashAttentionFn.apply(q, k, v, causal,
-    window, q_offset)`` is ``flash_attention`` (one K3 launch) forward and
-    ``flash_attention_backward`` (one call, three kernels) backward."""
+    window, q_offset)`` is one counted K3 launch forward (in bf16 with the
+    statistics the backward reads) and ``flash_attention_backward`` (one
+    call, three kernels) backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
-        out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                              bq=q.shape[2], bk=k.shape[2])
-        ctx.save_for_backward(q, k, v)
+        if q.dtype == torch.bfloat16 and q.device.type == "cuda":
+            out, lse, o32 = forward_with_stats(q, k, v, causal=causal, window=window,
+                                               q_offset=q_offset)
+            flash_attention.launches += 1
+            ctx.save_for_backward(q, k, v, lse, o32)
+        else:
+            out = flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, bq=q.shape[2], bk=k.shape[2])
+            ctx.save_for_backward(q, k, v)
         ctx.mask = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
+        q, k, v, *stats = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
         dq, dk, dv = flash_attention_backward(q, k, v, dout, causal=causal,
-                                              window=window, q_offset=q_offset)
+                                              window=window, q_offset=q_offset,
+                                              stats=stats or None)
         return dq, dk, dv, None, None, None

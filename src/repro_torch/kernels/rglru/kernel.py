@@ -16,6 +16,16 @@ Beyond the reference's contract, the wrapper takes a carried-in state
 keeps the reference's contract, T divisible by it or ``ValueError``, but
 sets nothing on the card: the kernel takes any T, and callers with ragged
 T pass ``chunk=T``.
+
+The gradient: when grad mode is on and an input requires grad, the
+wrapper runs as :class:`RGLRUScanFn`, whose forward is the launch above
+(counted as before) and whose backward is :func:`rglru_scan_backward`,
+``rglru_bwd_kernel`` in ``repro_torch/csrc/rglru_bwd.cu``: the reverse
+scan g_t = dh_t + a_{t+1} g_{t+1}, da_t = g_t h_{t-1}, db_t = g_t, with
+the same design as the forward (one channel a thread, a ring of
+``cp.async`` stages walked from the end) and each product and sum rounded
+once, so it equals ``rglru_scan_bwd_ref`` and autograd through
+``rglru_scan_ref`` bit for bit.
 """
 from __future__ import annotations
 
@@ -24,8 +34,8 @@ import functools
 
 import torch
 
-from .. import _build, refuse_grad
-from .ref import rglru_scan_ref
+from .. import _build
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,6 +45,16 @@ def _lib() -> ctypes.CDLL:
     lib.rglru_launch.argtypes = [p, p, p, p, i, i, i, p]
     lib.rglru_launch.restype = i
     lib.rglru_stage_steps.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("rglru_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.rglru_bwd_launch.restype = i
+    lib.rglru_bwd_stage_steps.restype = i
     return lib
 
 
@@ -64,7 +84,9 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
 
     Requires T % chunk == 0, as the reference does.  A CUDA tensor launches
     the kernel; a CPU tensor takes the plain version (``rglru_scan_ref``).
-    On the card a, b and h0 are float32 and contiguous.
+    On the card a, b and h0 are float32 and contiguous; when grad mode is
+    on and one of them requires grad, the call runs as :class:`RGLRUScanFn`
+    (the same launch, with K5's backward behind it).
     """
     _check(a, b, h0)
     bt, t, w = a.shape
@@ -72,15 +94,31 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
         raise ValueError(f"T={t} not divisible by chunk={chunk}")
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
-    refuse_grad("rglru_scan_cuda (K5)", "§2, K4 and K5 gradients", a, b, h0)
-    tensors = [x for x in (a, b, h0) if x is not None]
+    _check_card(a, b, h0)
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (a, b, h0)):
+        return RGLRUScanFn.apply(a, b, h0)
+    return _launch(a, b, h0)
+
+
+rglru_scan_cuda.launches = 0
+
+
+def _check_card(*xs) -> None:
+    tensors = [x for x in xs if x is not None]
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError(f"rglru_scan takes float32 on the card: "
                         f"{[x.dtype for x in tensors]}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("rglru_scan takes contiguous tensors")
-    if bt > 65535 or w >= 2 ** 31 or a.numel() >= 2 ** 62:
-        raise ValueError(f"shape {tuple(a.shape)} exceeds the kernel's grid")
+    bt, _, w = tensors[0].shape
+    if bt > 65535 or w >= 2 ** 31 or tensors[0].numel() >= 2 ** 62:
+        raise ValueError(f"shape {tuple(tensors[0].shape)} exceeds the kernel's grid")
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
+    """One K5 launch on checked CUDA tensors, counted."""
+    bt, t, w = a.shape
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
@@ -93,4 +131,49 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
     return out
 
 
-rglru_scan_cuda.launches = 0
+def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                        h0: torch.Tensor | None = None):
+    """(da, db, dh0) of ``h = rglru_scan_cuda(a, b, h0=h0)`` for the
+    gradient ``dh`` of h (dh0 None when h0 is None).  A CUDA tensor
+    launches K5's backward (float32, any contiguous layout of dh is copied
+    first); a CPU tensor takes the plain version, ``rglru_scan_bwd_ref``."""
+    _check(a, h, h0)
+    if dh.shape != a.shape:
+        raise ValueError(f"dh is {tuple(dh.shape)}, a is {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, h, dh, h0)
+    dh = dh.float().contiguous()
+    _check_card(a, h, dh, h0)
+    bt, t, w = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty_like(h0)
+    if a.numel() == 0:
+        return da, db, None if dh0 is None else dh0.zero_()
+    lib = _bwd_lib()
+    err = lib.rglru_bwd_launch(
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(), None if h0 is None else h0.data_ptr(),
+        da.data_ptr(), db.data_ptr(), None if dh0 is None else dh0.data_ptr(), bt, t, w,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(lib, err, "rglru_bwd_kernel launch")
+    rglru_scan_backward.launches += 1
+    return da, db, dh0
+
+
+rglru_scan_backward.launches = 0
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """K5 with its gradient: ``RGLRUScanFn.apply(a, b, h0)`` is one K5
+    launch forward and one ``rglru_scan_backward`` launch backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _launch(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_backward(a, h, dh, h0)
+        return da, db, dh0

@@ -11,7 +11,9 @@ path, as the reference's does, and a fourth positional argument raises
 raises, and a CPU tensor to the plain version; ``use_kernel=False`` asks
 for the plain version on any device.  Beyond the reference, the
 keyword-only ``h0`` carries a state in (the model's decode step and a
-prefill from a cache).
+prefill from a cache).  On a CUDA tensor in grad mode (training) the
+kernel path runs as ``kernel.RGLRUScanFn``: K5 forward, K5's reverse scan
+backward; serving runs under ``torch.no_grad`` and launches K5 alone.
 """
 from __future__ import annotations
 

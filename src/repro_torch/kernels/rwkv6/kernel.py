@@ -16,9 +16,22 @@ chunks), allocated here.
 
 Beyond the reference's contract, the wrapper takes a carried-in state
 ``s0`` (parity is held against ``wkv6_ref(s0=...)``) and writes the final
-state into it in place (the model updates its cache so).  ``chunk`` keeps the reference's contract, T
-divisible by it or ``ValueError``, but sets nothing on the card: the kernel
-takes any T, and callers with ragged T pass ``chunk=T``.
+state into it in place (the model updates its cache so).  ``chunk`` keeps
+the reference's contract, T divisible by it or ``ValueError``, but sets
+nothing on the card: the kernel takes any T, and callers with ragged T
+pass ``chunk=T``.
+
+The gradient: when grad mode is on and an input requires grad, the
+wrapper runs as :class:`WKV6Fn`.  Its forward is the launch above,
+counted as before, except that a given ``s0`` is left alone and the final
+state is a new tensor (autograd needs both; ROADMAP P8 holds for calls
+without a gradient, so serving still updates its cache in place).  Its
+backward is :func:`wkv6_backward`, ``wkv6_bwd_kernel`` and
+``wkv6_bwd_finish_kernel`` in ``repro_torch/csrc/wkv6_bwd.cu``: the
+reverse recurrence of ``wkv6_bwd_ref``, with the states S_{t-1} recomputed
+forward from ``s0`` (never by dividing by w, which reaches 1e-30 and
+below), sums over a row's columns kept in f32 and summed in a fixed order,
+and no float atomics.
 """
 from __future__ import annotations
 
@@ -27,8 +40,8 @@ import functools
 
 import torch
 
-from .. import _build, refuse_grad
-from .ref import wkv6_ref
+from .. import _build
+from .ref import wkv6_bwd_ref, wkv6_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64)     # the kernel's compiled head widths
@@ -43,6 +56,19 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.wkv6_launch.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("wkv6_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_bwd_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                    i, i, i, i, p]
+    lib.wkv6_bwd_launch.restype = i
+    lib.wkv6_bwd_workspace_floats.argtypes = [i, i, i, i]
+    lib.wkv6_bwd_workspace_floats.restype = ctypes.c_longlong
+    lib.wkv6_bwd_sub_steps.restype = i
     return lib
 
 
@@ -73,10 +99,12 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd).
 
     Returns (o (B, T, H, hd) f32, sT (B, H, hd, hd) f32); ``sT`` is ``s0``
-    itself, updated in place, when one is given.  Requires T % chunk == 0, as the
-    reference does.  A CUDA tensor launches the kernel; a CPU tensor takes
-    the plain version (``wkv6_ref``).  On the card r, k, v are f32 or bf16
-    and w, u, s0 f32, all contiguous, and r, k, v, w start on 16 bytes.
+    itself, updated in place, when one is given and no gradient is asked.
+    Requires T % chunk == 0, as the reference does.  A CUDA tensor launches
+    the kernel; a CPU tensor takes the plain version (``wkv6_ref``).  On
+    the card r, k, v are f32 or bf16 and w, u, s0 f32, all contiguous, and
+    r, k, v, w start on 16 bytes.  In grad mode, with an input that
+    requires grad, the call runs as :class:`WKV6Fn` (``sT`` a new tensor).
     """
     _check(r, k, v, w, u, s0)
     b, t, h, hd = r.shape
@@ -85,7 +113,17 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type == "cpu":
         o, st = wkv6_ref(r, k, v, w, u, s0=s0)
         return o, (st if s0 is None else s0.copy_(st))
-    refuse_grad("wkv6_cuda (K4)", "§2, K4 and K5 gradients", r, k, v, w, u, s0)
+    _check_card(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad
+                                       for x in (r, k, v, w, u, s0)):
+        return WKV6Fn.apply(r, k, v, w, u, s0)
+    o, st = run(r, k, v, w, u, s0, TIME_CHUNK)
+    wkv6_cuda.launches += 1
+    return o, st
+
+
+def _check_card(r, k, v, w, u, s0) -> None:
+    b, t, h, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not compiled; the kernel takes {HEAD_DIMS}")
     f32 = [x for x in (w, u, s0) if x is not None]
@@ -98,22 +136,21 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "start on 16 bytes (copy a view cut at an odd offset)")
     if b * h >= 2 ** 31 or r.numel() >= 2 ** 62 or t > 65535 * 32:   # grid y
         raise ValueError(f"shape {tuple(r.shape)} exceeds the kernel's grid")
-    o, st = run(r, k, v, w, u, s0, TIME_CHUNK)
-    wkv6_cuda.launches += 1
-    return o, st
 
 
 wkv6_cuda.launches = 0
 
 
-def run(r, k, v, w, u, s0, chunk: int):
+def run(r, k, v, w, u, s0, chunk: int, st: torch.Tensor | None = None):
     """Launch K4 on checked CUDA tensors with time chunks of ``chunk`` steps:
-    (o, sT).  ``wkv6_cuda`` calls it with ``TIME_CHUNK``; the sweep with
-    other chunk sizes."""
+    (o, sT), the final state written into ``st`` (default: ``s0``, else a
+    new tensor).  ``wkv6_cuda`` calls it with ``TIME_CHUNK``; the sweep
+    with other chunk sizes."""
     b, t, h, hd = r.shape
     o = torch.empty(r.shape, dtype=torch.float32, device=r.device)
-    st = s0 if s0 is not None else \
-        torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if st is None:
+        st = s0 if s0 is not None else \
+            torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
     scratch = None if t <= chunk else torch.empty(
         b * h * (-(-t // chunk) * (hd * hd + hd) + t * hd), dtype=torch.float32,
         device=r.device)
@@ -125,3 +162,65 @@ def run(r, k, v, w, u, s0, chunk: int):
         chunk, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "wkv6 kernel launch")
     return o, st
+
+
+def wkv6_backward(r, k, v, w, u, s0, do, dsT=None):
+    """(dr, dk, dv, dw, du, ds0) of ``wkv6_cuda(r, k, v, w, u, s0=s0)`` for
+    the gradients ``do`` of o and ``dsT`` of the final state (None: zero):
+    each in its input's dtype, ds0 (B, H, hd, hd) f32 (the gradient of the
+    zero state when ``s0`` is None).  A CUDA tensor launches K4's backward
+    (two kernels); a CPU tensor takes the plain version,
+    ``wkv6_bwd_ref``."""
+    _check(r, k, v, w, u, s0)
+    b, t, h, hd = r.shape
+    for name, x, shape in (("do", do, r.shape), ("dsT", dsT, (b, h, hd, hd))):
+        if x is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} is {tuple(x.shape)}, want {tuple(shape)}")
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, w, u, s0, do, dsT)
+    _check_card(r, k, v, w, u, s0)
+    do = do.float().contiguous()
+    dsT = None if dsT is None else dsT.float().contiguous()
+    dr, dk, dv = (torch.empty(r.shape, dtype=x.dtype, device=r.device) for x in (r, k, v))
+    dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    lib = _bwd_lib()
+    ws = torch.empty(lib.wkv6_bwd_workspace_floats(b, t, h, hd), dtype=torch.float32,
+                     device=r.device)
+    err = lib.wkv6_bwd_launch(
+        _DTYPES[r.dtype], *(x.data_ptr() for x in (r, k, v, w, u)),
+        None if s0 is None else s0.data_ptr(), do.data_ptr(),
+        None if dsT is None else dsT.data_ptr(),
+        *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, err, "wkv6 backward launch")
+    wkv6_backward.launches += 1
+    return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
+wkv6_backward.launches = 0
+
+
+class WKV6Fn(torch.autograd.Function):
+    """K4 with its gradient: ``WKV6Fn.apply(r, k, v, w, u, s0)`` is one
+    counted K4 call forward, from ``s0`` (None: zero) into a new final
+    state, and one ``wkv6_backward`` call backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        b, t, h, hd = r.shape
+        st = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+        o, st = run(r, k, v, w, u, s0, TIME_CHUNK, st=st)
+        wkv6_cuda.launches += 1
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return o, st
+
+    @staticmethod
+    def backward(ctx, do, dsT):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dw, du, ds0 = wkv6_backward(r, k, v, w, u, s0, do, dsT)
+        return dr, dk, dv, dw, du, (None if s0 is None else ds0)

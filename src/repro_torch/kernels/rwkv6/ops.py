@@ -11,7 +11,11 @@ as the reference's does, and a seventh positional argument raises
 raises, and a CPU tensor to the plain version; ``use_kernel=False`` asks
 for the plain version on any device.  Beyond the reference, the
 keyword-only ``s0`` carries a state in, and the final state is written
-into it in place (the model's cache update, ROADMAP P8).
+into it in place (the model's cache update, ROADMAP P8).  On a CUDA
+tensor in grad mode (training) the kernel path runs as
+``kernel.WKV6Fn``: K4 forward into a new final state, with ``s0`` left
+alone, and K4's backward; serving runs under ``torch.no_grad`` and keeps
+the in-place update.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, use_kernel: bool = True, *,
          s0: torch.Tensor | None = None):
     """(o, sT) for the RWKV-6 recurrence from ``s0`` (zero when None);
-    ``sT`` is ``s0`` itself, updated in place, when one is given."""
+    ``sT`` is ``s0`` itself, updated in place, when one is given (except
+    on the card in grad mode, see above)."""
     if use_kernel:
         return wkv6_cuda(r, k, v, w, u, chunk=r.shape[1], s0=s0)
     o, st = wkv6_ref(r, k, v, w, u, s0=s0)

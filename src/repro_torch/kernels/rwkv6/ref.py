@@ -6,7 +6,8 @@
 The port of ``repro.kernels.rwkv6.ref``, step by step.  The model's plain
 path uses it for prefill of any length and for the one-token decode step
 alike (the reference's chunked ``lax.scan`` and its inline decode update
-compute this same loop).
+compute this same loop).  ``wkv6_bwd_ref`` is its gradient written out
+as a reverse recurrence, the plain version of K4's backward.
 """
 from __future__ import annotations
 
@@ -29,3 +30,52 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(torch.einsum("bhij,bhi->bhj", s_eff, rt))
         s = wt[..., :, None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                 u: torch.Tensor, s0: torch.Tensor | None, do: torch.Tensor,
+                 dsT: torch.Tensor | None):
+    """The gradient of ``wkv6_ref`` as an explicit reverse recurrence.
+
+    ``do`` is the gradient of o (B, T, H, hd) and ``dsT`` that of the final
+    state (None: zero).  Per head, with dS_t the gradient of S_t and dS_T =
+    dsT, walking t down:
+
+        dr_t = (S_{t-1} + diag(u) k_t v_tᵀ) do_t
+        dk_t = u ⊙ r_t (v_t·do_t) + dS_t v_t
+        dv_t = (Σ_i r_i u_i k_i) do_t + dS_tᵀ k_t
+        dw_t = rowsum(dS_t ⊙ S_{t-1})
+        du   = Σ_{b,t} r_t ⊙ k_t (v_t·do_t)
+        dS_{t-1} = diag(w_t) dS_t + r_t do_tᵀ,   ds0 = dS_0 (before step 0)
+
+    The states S_{t-1} come from a forward walk (kept in a list), never by
+    dividing by w.  Returns (dr, dk, dv, dw, du, ds0): each in its input's
+    dtype (f32 math, as autograd through ``wkv6_ref``'s ``.float()``),
+    ds0 f32."""
+    b, t, h, hd = r.shape
+    s = s0.float() if s0 is not None else \
+        torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    uf = u.float()
+    steps = [tuple(x[:, i].float() for x in (r, k, v, w, do)) for i in range(t)]
+    states = []
+    for _, kt, vt, wt, _ in steps:
+        states.append(s)
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    g = dsT.float() if dsT is not None else torch.zeros_like(s)
+    grads = [torch.empty((b, t, h, hd), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((h, hd), dtype=torch.float32, device=r.device)
+    for i in range(t - 1, -1, -1):
+        rt, kt, vt, wt, dot = steps[i]
+        sp = states[i]
+        vdo = (vt * dot).sum(-1, keepdim=True)
+        dr[:, i] = torch.einsum("bhij,bhj->bhi", sp, dot) + uf * kt * vdo
+        dk[:, i] = uf * rt * vdo + torch.einsum("bhij,bhj->bhi", g, vt)
+        dv[:, i] = (rt * uf * kt).sum(-1, keepdim=True) * dot + \
+            torch.einsum("bhij,bhi->bhj", g, kt)
+        dw[:, i] = (g * sp).sum(-1)
+        du += (rt * kt * vdo).sum(0)
+        g = wt[..., :, None] * g + rt[..., :, None] * dot[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), g)

@@ -7,10 +7,12 @@ counter; ``run()`` resumes from the newest checkpoint if one exists, so a
 kill at any point loses at most ``checkpoint_every`` steps.  Checkpoints
 are written in the reference's layout and format
 (``models.convert.to_reference_layout``, ``checkpoint.manager``), so
-either package's trainer resumes from the other's directory.  On the
-card, a resumed run equals an uninterrupted one bit for bit when
-``torch.use_deterministic_algorithms(True)`` is set (K3's backward uses
-no atomics; the embedding's indexing backward needs the setting).
+either package's trainer resumes from the other's directory.  A resumed
+run equals an uninterrupted one bit for bit, on the card too, with no
+global setting: the hand-written backward kernels (K3, K4, K5) use no
+float atomics, and ``chip_smoke.py`` phase 7e holds the full-width
+qwen2-0.5b trainer to it without ``torch.use_deterministic_algorithms`` or
+``CUBLAS_WORKSPACE_CONFIG``.
 """
 from __future__ import annotations
 

@@ -8,8 +8,10 @@ gradient accumulation (``cfg.microbatches``): microbatch j holds rows j,
 j + k, j + 2k, ... of the batch, as the reference's device-major split
 gives them; gradients flow in the param dtype and are accumulated in
 fp32; the loss is the microbatches' mean and the other metrics are the
-last microbatch's.  On the card, attention's gradient runs in K3's
-backward kernel (``kernels.flash_attention.kernel.FlashAttentionFn``).
+last microbatch's.  On the card, attention's, the WKV6 recurrence's and
+the RG-LRU scan's gradients run in K3's, K4's and K5's backward kernels
+(``FlashAttentionFn``, ``WKV6Fn``, ``RGLRUScanFn`` in ``kernels``), so
+every configuration trains there.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The port's training path (``repro_torch.train``, ``data``,
 ``distributed.fault``, ``launch.train`` and the example twins) held
-against the JAX package on the CPU, plus ``cuda`` tests of K3's backward
-kernel and of the kernels that must refuse a gradient.
+against the JAX package on the CPU, plus ``cuda`` tests of the backward
+kernels (K3, K4, K5) and of the kernels that must refuse a gradient (K1,
+K2).
 
 The numbers: the reduced qwen2-0.5b (``reduce_config``, f32) with the
 reference's own initial parameters carried across by ``params_from_jax``,
@@ -450,6 +451,28 @@ class TestK3BackwardOnCard:
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
+    @pytest.mark.parametrize("case", BWD_CASES)
+    def test_forward_with_stats_keeps_the_bits(self, cuda, case):
+        """The statistics K3's forward writes for its backward change none of
+        o's bits; lse is each row's log-sum-exp, o32 is o before rounding."""
+        from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                                 forward_with_stats)
+        b, hq, hkv, tq, tk, hd, causal, window, qo = case
+        q, k, v, _ = _grad_inputs(cuda, b, hq, hkv, tq, tk, hd, torch.bfloat16)
+        mask = dict(causal=causal, window=window, q_offset=qo)
+        out, lse, o32 = forward_with_stats(q, k, v, **mask)
+        assert torch.equal(out, flash_attention(q, k, v, bq=tq, bk=tk, **mask))
+        assert torch.equal(out, o32.to(torch.bfloat16))
+        qf, kf = q.float(), k.float().repeat_interleave(hq // hkv, 1)
+        s = qf @ kf.transpose(-1, -2) * hd ** -0.5
+        t, key = torch.arange(tq, device=cuda)[:, None] + qo, torch.arange(tk, device=cuda)
+        if causal:
+            seen = key <= t
+            if window:
+                seen &= key > t - window
+            s = s.masked_fill(~seen, float("-inf"))
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=0, atol=1e-5)
+
     def test_autograd_function_counts_one_of_each(self, cuda):
         from repro_torch.kernels.flash_attention import kernel
         q, k, v, do = _grad_inputs(cuda, 1, 14, 2, 128, 128, 64, torch.bfloat16)
@@ -464,20 +487,55 @@ class TestK3BackwardOnCard:
             assert _limit_share(g, w, torch.bfloat16) <= 1.0
 
 
+# K4's backward against autograd of wkv6_ref, per element: WKV_BWD_REL of
+# the largest |ref| of each gradient (chip_smoke.py's limit, fixed from the
+# first reading on the card: 0.994 of 1e-5 at worst), plus one bf16 ulp
+# (2^-7 |ref|) for the bf16 gradients (dr, dk, dv of bf16 inputs), which
+# both round once from f32 sums taken in other orders; K5's backward bit
+# for bit
+WKV_BWD_REL = 3e-5
+# b, t, h, hd: either side of the backward's 16-step sub-chunk, K4's
+# 128-step time chunk and every compiled head dim
+WKV_BWD_CASES = [(1, 1, 2, 64), (2, 17, 2, 64), (1, 130, 3, 32), (1, 40, 2, 16),
+                 (1, 33, 1, 8)]
+# b, t, w: either side of K5's 32-step stage, and a width off 4 (4-byte copies)
+RGLRU_BWD_CASES = [(1, 1, 64), (2, 31, 64), (1, 33, 96), (2, 100, 67)]
+
+
+def _wkv_grad_inputs(dev, b, t, h, hd, dtype, decay=0.0, seed=0):
+    """r, k, v (``dtype``), w = exp(-exp(decay + noise)), u, s0, do, dsT."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, scale=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+    r, k, v = (f(b, t, h, hd, scale=sc).to(dtype) for sc in (1.0, 0.3, 0.3))
+    w = torch.exp(-torch.exp(decay + f(b, t, h, hd, scale=0.5)))
+    return r, k, v, w, f(h, hd, scale=0.3), f(b, h, hd, hd, scale=0.3), f(b, t, h, hd), \
+        f(b, h, hd, hd)
+
+
+def _wkv_plain_grads(r, k, v, w, u, s0, do, dsT):
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u, s0)]
+    o, st = wkv6_ref(*leaves)
+    return torch.autograd.grad((o, st), leaves, (do, dsT))
+
+
+def _wkv_share(got, want):
+    """The largest |got - want| over its limit (see WKV_BWD_REL)."""
+    worst = 0.0
+    for g, x in zip(got, want):
+        x32 = x.float()
+        lim = WKV_BWD_REL * max(float(x32.abs().max()), 1e-30) + \
+            (2 ** -7 * x32.abs() if x.dtype == torch.bfloat16 else 0.0)
+        worst = max(worst, float(((g.float() - x32).abs() / lim).max()))
+    return worst
+
+
 @pytest.mark.cuda
 class TestGradientsOnCard:
     def test_other_kernels_refuse_a_gradient(self, cuda):
         from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
         from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
-        from repro_torch.kernels.rglru.kernel import rglru_scan_cuda
-        from repro_torch.kernels.rwkv6.kernel import wkv6_cuda
-        r = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
-        w = torch.rand(1, 64, 2, 64, device=cuda)
-        with pytest.raises(RuntimeError, match="wkv6_cuda.*ROADMAP"):
-            wkv6_cuda(r, r.detach(), r.detach(), w, torch.zeros(2, 64, device=cuda))
-        a = torch.rand(1, 128, 32, device=cuda, requires_grad=True)
-        with pytest.raises(RuntimeError, match="rglru_scan_cuda.*ROADMAP"):
-            rglru_scan_cuda(a, a.detach())
         f = torch.randn(20, 20, 20, device=cuda, requires_grad=True)
         with pytest.raises(RuntimeError, match="jacobi_sweep_cuda.*ROADMAP"):
             jacobi_sweep_cuda(f)
@@ -485,7 +543,97 @@ class TestGradientsOnCard:
             jacobi_two_step_cuda(f)
         with torch.no_grad():                        # no gradient asked: they run
             jacobi_sweep_cuda(f)
-            rglru_scan_cuda(a, a)
+
+    @pytest.mark.parametrize("case", WKV_BWD_CASES)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("decay", [-8.0, 0.0, 4.0])     # w near 1, mid, near 0
+    def test_wkv6_backward_against_plain_autograd(self, cuda, case, dtype, decay):
+        from repro_torch.kernels.rwkv6.kernel import wkv6_backward
+        r, k, v, w, u, s0, do, dsT = _wkv_grad_inputs(cuda, *case, dtype, decay)
+        got = wkv6_backward(r, k, v, w, u, s0, do, dsT)
+        want = _wkv_plain_grads(r, k, v, w, u, s0, do, dsT)
+        torch.cuda.synchronize()
+        for g, x in zip(got, (r, k, v, w, u, s0)):
+            assert g.shape == x.shape and g.dtype == x.dtype
+        assert _wkv_share(got, want) <= 1.0
+
+    def test_wkv6_fn_counts_repeats_and_leaves_s0(self, cuda):
+        from repro_torch.kernels.rwkv6 import kernel, ops
+        r, k, v, w, u, s0, do, dsT = _wkv_grad_inputs(cuda, 2, 150, 2, 64, torch.bfloat16)
+        leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u, s0)]
+        before = s0.clone()
+        kernel.wkv6_cuda.launches = kernel.wkv6_backward.launches = 0
+        o, st = ops.wkv6(*leaves[:5], s0=leaves[5])
+        with torch.no_grad():
+            o_serving, _ = ops.wkv6(r, k, v, w, u, s0=s0.clone())
+        assert torch.equal(o, o_serving)                 # the forward's bits
+        assert torch.equal(leaves[5].detach(), before) and st is not leaves[5]
+        grads = torch.autograd.grad((o, st), leaves, (do, dsT))
+        assert (kernel.wkv6_cuda.launches, kernel.wkv6_backward.launches) == (2, 1)
+        assert _wkv_share(grads, _wkv_plain_grads(r, k, v, w, u, s0, do, dsT)) <= 1.0
+        again = kernel.wkv6_backward(r, k, v, w, u, s0, do, dsT)
+        assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+    def test_wkv6_planted_faults_exceed_the_limit(self, cuda):
+        from repro_torch.kernels.rwkv6.kernel import wkv6_backward
+        r, k, v, w, u, s0, do, dsT = _wkv_grad_inputs(cuda, 1, 40, 2, 64, torch.float32)
+        got = wkv6_backward(r, k, v, w, u, s0, do, dsT)
+        assert _wkv_share(got, _wkv_plain_grads(r, k, v, w, u * 0, s0, do, dsT)) > 1.0
+        assert _wkv_share(got, _wkv_plain_grads(r, k, v, w, u, s0 * 0, do, dsT)) > 1.0
+
+    @pytest.mark.parametrize("case", RGLRU_BWD_CASES)
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_rglru_backward_bit_for_bit(self, cuda, case, with_h0):
+        from repro_torch.kernels.rglru.kernel import rglru_scan_backward, rglru_scan_cuda
+        from repro_torch.kernels.rglru.ref import rglru_scan_bwd_ref, rglru_scan_ref
+        rng = np.random.default_rng(1)
+        b, t, w = case
+        a, bx, dh = (torch.from_numpy(x.astype(np.float32)).to(cuda) for x in (
+            rng.uniform(0.0, 1.0, (b, t, w)), rng.standard_normal((b, t, w)),
+            rng.standard_normal((b, t, w))))
+        h0 = torch.from_numpy(rng.standard_normal((b, w)).astype(np.float32)).to(cuda) \
+            if with_h0 else None
+        h = rglru_scan_cuda(a, bx, chunk=t, h0=h0)
+        got = rglru_scan_backward(a, h, dh, h0)
+        want = rglru_scan_bwd_ref(a, h, dh, h0)
+        leaves = [x.detach().requires_grad_(True) for x in (a, bx)] + \
+            ([h0.detach().requires_grad_(True)] if with_h0 else [])
+        auto = torch.autograd.grad(rglru_scan_ref(*leaves[:2], leaves[2] if with_h0 else None),
+                                   leaves, dh)
+        torch.cuda.synchronize()
+        assert (got[2] is None) == (not with_h0)
+        for g, x, y in zip(got, want, auto):
+            assert torch.equal(g, x) and torch.equal(g, y)
+
+    def test_rglru_fn_counts_and_repeats(self, cuda):
+        from repro_torch.kernels.rglru import kernel, ops
+        rng = np.random.default_rng(2)
+        a, bx, dh = (torch.from_numpy(rng.uniform(0.1, 1.0, (1, 70, 128)).astype(np.float32))
+                     .to(cuda) for _ in range(3))
+        leaves = [x.detach().requires_grad_(True) for x in (a, bx)]
+        kernel.rglru_scan_cuda.launches = kernel.rglru_scan_backward.launches = 0
+        h = ops.rglru_scan(*leaves)
+        with torch.no_grad():
+            assert torch.equal(h, ops.rglru_scan(a, bx))
+        da, db = torch.autograd.grad(h, leaves, dh)
+        assert (kernel.rglru_scan_cuda.launches, kernel.rglru_scan_backward.launches) == (2, 1)
+        again = kernel.rglru_scan_backward(a, h.detach(), dh)
+        assert torch.equal(da, again[0]) and torch.equal(db, again[1])
+
+    def test_rglru_planted_faults_differ(self, cuda):
+        """The bit-for-bit check catches a shifted decay and a shifted state."""
+        from repro_torch.kernels.rglru.kernel import rglru_scan_backward, rglru_scan_cuda
+        rng = np.random.default_rng(3)
+        a, bx, dh = (torch.from_numpy(rng.uniform(0.1, 1.0, (1, 50, 64)).astype(np.float32))
+                     .to(cuda) for _ in range(3))
+        h = rglru_scan_cuda(a, bx, chunk=50)
+        da, db, _ = rglru_scan_backward(a, h, dh)
+        g, shifted_g = dh.clone(), dh.clone()
+        for i in range(48, -1, -1):
+            g[:, i] = dh[:, i] + a[:, i + 1] * g[:, i + 1]
+            shifted_g[:, i] = dh[:, i] + a[:, i] * shifted_g[:, i + 1]    # a_t for a_{t+1}
+        assert torch.equal(db, g) and not torch.equal(db, shifted_g)
+        assert not torch.equal(da, g * h)                                  # h_t for h_{t-1}
 
     def test_loss_gradient_reaches_every_attention_projection(self, cuda):
         cfg = dataclasses.replace(get_config(ARCH), num_layers=2)
