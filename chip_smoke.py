@@ -206,10 +206,12 @@ failure:
    1, 31, 33, 1024; W 4097 at T 65), decays near 0, mid and near 1, from
    h0 and from zero; K4's backward against the CUDA autograd of
    ``wkv6_ref`` and ``wkv6_bwd_ref`` at rwkv6-3b's 40 heads of 64 in bf16
-   (T 1, 15, 17, 127, 129 crossed with decays near 1, mid and near 0 and
-   s0 given or not; T 1024), per element within ``WKV_BWD_REL`` of the
-   largest |ref| plus one bf16 ulp; two planted faults each, a repeat bit
-   for bit, times beside the bounds and the plain versions.  7g
+   (T 1, 15, 17, 63, 65, 127, 129 crossed with decays near 1, mid and near
+   0 and s0 given or not; T 1024), per element within ``WKV_BWD_REL`` of
+   the largest |ref| plus one bf16 ulp; two planted faults in K5's, three
+   in K4's (u dropped, s0 not carried in, dsT dropped), a repeat bit for
+   bit, times beside the bounds and the plain versions, and each of K4's
+   backward kernels' device us at T 1024.  7g
    (``arch_phase``): one full-width train step of rwkv6-3b (8 of 32 layers)
    and recurrentgemma-9b (9 of 38), 2 x 512 tokens, bf16, kernel path
    against plain path, and an f32 step at 2 and 3 layers with two planted
@@ -1614,12 +1616,13 @@ RGLRU_BWD_SHAPES = [(1, 4096), (31, 4096), (33, 4096), (65, 4097), (1024, 4096)]
 RGLRU_BWD_DECAYS = {"near 0": (1e-6, 1e-3), "mid": (0.0, 1.0), "near 1": (0.999, 1.0)}
 RGLRU_BWD_HEADLINE = (1024, 4096)
 # K4's backward at rwkv6-3b's 40 heads of 64, B 1, bf16 r, k, v: T 1, either
-# side of its 16-step sub-chunk and of the forward's 128-step chunk, and the
-# training length; w = exp(-exp(d + noise)) at d -8 (near 1), 0 and 4 (near
-# 1e-24); from s0 and from zero, with a final-state gradient.  The plain
-# autograd through wkv6_ref at T 1024 takes about a second, so the decays
-# and s0's absence are crossed at the short lengths and T 1024 runs once.
-WKV_BWD_T = [1, 15, 17, 127, 129]
+# side of two of its 8-step sub-chunks, of its 64-step time chunk
+# (BWD_CHUNK) and of the forward's 128-step chunk, and the training length;
+# w = exp(-exp(d + noise)) at d -8 (near 1), 0 and 4 (near 1e-24); from s0
+# and from zero, with a final-state gradient.  The plain autograd through
+# wkv6_ref at T 1024 takes about a second, so the decays and s0's absence
+# are crossed at the short lengths and T 1024 runs once.
+WKV_BWD_T = [1, 15, 17, 63, 65, 127, 129]
 WKV_BWD_DECAYS = {"near 1": -8.0, "mid": 0.0, "near 0": 4.0}
 WKV_BWD_HEADLINE_T = 1024
 # Per element, |got - ref| <= WKV_BWD_REL * max |ref| of each gradient, plus
@@ -1629,6 +1632,9 @@ WKV_BWD_HEADLINE_T = 1024
 # (T 127, w near 1), the planted faults 27,778x and 71,968x; the limit sits
 # 3x above the reading (tests/test_torch_train.py uses the same limit).
 WKV_BWD_REL = 3e-5
+# K4's backward kernels, in launch order (the first two only past one chunk)
+WKV_BWD_KERNELS = ("wkv6_bwd_local_kernel", "wkv6_bwd_carry_kernel", "wkv6_bwd_kernel",
+                   "wkv6_bwd_finish_kernel")
 # 7g: one train step of each at full width, kernel path against plain path,
 # at a cut depth and batch (the plain WKV loop's autograd is seconds a layer
 # at T 1024): bf16 at POLICY_DEPTH layers, f32 at ARCH_F32_LAYERS layers with
@@ -1662,6 +1668,10 @@ RWKV_BF16_L2 = 0.5
 ARCH_TRAIN = {RWKV: dict(layers=16, batch=8, steps=10),
               GRIFFIN: dict(layers=4, batch=4, steps=10)}
 ARCH_TRAIN_SEQ = 1024
+# K4's backward device ms in one profiled rwkv6-3b step of 7h with its
+# first design, one block per 32 rows of a head walking all of time
+# (PERF.md §5-§6; H100 80GB HBM3, 700 W)
+K4_BWD_MS_A_STEP_FIRST = 98.65
 # 7i: F1's own command on the reduced configs
 CLI_STEPS = 20
 
@@ -1829,7 +1839,9 @@ def recurrent_backward_phase(dev, card) -> dict:
     got = k4.wkv6_backward(*x)
     faults = {"u dropped": wkv_limit_share(got, k4_autograd(r, k, v, w, u * 0, s0, do, dst)),
               "s0 not carried in": wkv_limit_share(
-                  got, k4_autograd(r, k, v, w, u, torch.zeros_like(s0), do, dst))}
+                  got, k4_autograd(r, k, v, w, u, torch.zeros_like(s0), do, dst)),
+              "dsT dropped": wkv_limit_share(
+                  got, k4_autograd(r, k, v, w, u, s0, do, torch.zeros_like(dst)))}
     print("wkv6 backward planted faults (share of the limit, must exceed 1): "
           + ", ".join(f"{f} {s:.1f}" for f, s in faults.items()))
     if min(faults.values()) <= 1.0:
@@ -1840,6 +1852,24 @@ def recurrent_backward_phase(dev, card) -> dict:
         fail("K4's backward gave other bits when repeated")
     print("wkv6 backward repeated: identical bits")
     ms = device_ms(lambda: k4.wkv6_backward(*x), 10)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm_profiler()
+        for _ in range(5):
+            torch.cuda._sleep(1_000_000)
+            k4.wkv6_backward(*x)
+        torch.cuda.synchronize()
+    spans = drop_warmup(device_spans(prof))
+    per_launch = {}
+    for name in WKV_BWD_KERNELS:
+        us = [(e - st) / 1e3 for n, st, e in spans if name in n]
+        if not us:
+            fail(f"the profile of K4's backward has no {name}")
+        per_launch[name] = sum(us) / len(us)
+    geo = k4.bwd_geometry()
+    print(f"wkv6 backward device us a launch at T {WKV_BWD_HEADLINE_T} ({geo['chunk']}-step "
+          f"chunks, torch.profiler): " + ", ".join(
+              f"{name} {us:.2f}" for name, us in per_launch.items()) + f" [{card}]")
     plain_ms = time_ms(lambda: wkv6_bwd_ref(*x), 1, warmup=1)
     leaves = [y.detach().requires_grad_(True) for y in (r, k, v, w, u, s0)]
     o, st = wkv6_ref(*leaves)
@@ -1859,7 +1889,8 @@ def recurrent_backward_phase(dev, card) -> dict:
         "replaces": "src/repro/kernels/rwkv6/kernel.py:27", "max_abs_err": k4_err,
         "limit_share": k4_worst, "planted_faults": faults, "shape": [1, t, nh, hd],
         "ms": ms, "plain_ms": plain_ms, "plain_autograd_ms": auto_ms, "bound_ms": bnd[0],
-        "bound_by": bnd[1], "library_ms": None, "cases": k4_res}
+        "bound_by": bnd[1], "library_ms": None, "cases": k4_res, "chunk": geo["chunk"],
+        "sub_steps": geo["sub_steps"], "per_launch_us": per_launch}
     del x, got, again
     free_device_memory()
     return {"rglru_scan_backward": k5_entry, "wkv6_backward": k4_entry,
@@ -2080,6 +2111,9 @@ def arch_phase(dev, card) -> dict:
         print(f"{arch} profiled train step: wall {prof_ms:.2f} ms, device busy {busy:.2f} ms, "
               f"idle share {1 - busy / prof_ms:.4f}; kernel device ms a step: " + ", ".join(
                   f"{f} {x:.2f}" for f, x in by_family.items()))
+        if arch == RWKV:
+            print(f"{arch} K4 backward device ms a step: {by_family.get('K4 backward', 0.0):.2f} "
+                  f"(the first design: {K4_BWD_MS_A_STEP_FIRST}) [{card}]")
         print("device time by function over the profiled step:")
         print("\n".join(top_kernels(spans, 10)))
         out["trainer"] = {
@@ -2246,8 +2280,11 @@ def main() -> None:
                             f"{smem[3]}/{smem[4]} B")
     print("flash_attention backward: dynamic shared memory per block (f32 prep/dq/dkdv, "
           "bf16 tensor-core dq/dkdv): " + ", ".join(bwd_smem))
-    print(f"wkv6 backward: {wkv_kernel._bwd_lib().wkv6_bwd_sub_steps()}-step sub-chunks; "
-          f"rglru backward: {rglru_kernel._bwd_lib().rglru_bwd_stage_steps()}-step stages")
+    geo = wkv_kernel.bwd_geometry()
+    print(f"wkv6 backward: {geo['chunk']}-step time chunks of {geo['sub_steps']}-step "
+          f"sub-chunks; walk kernel blocks per SM at hd 64, bf16, by chunk: "
+          f"{geo['blocks_per_sm']}; rglru backward: "
+          f"{rglru_kernel._bwd_lib().rglru_bwd_stage_steps()}-step stages")
     for two_step, name in ((False, "jacobi_sweep (K1)"), (True, "jacobi_two_step (K2)")):
         g = k12_kernel.geometry(two_step)
         print(f"{name}: instance {g['variant']} of {k12_kernel.variants(two_step)}, tile "

@@ -26,12 +26,18 @@ wrapper runs as :class:`WKV6Fn`.  Its forward is the launch above,
 counted as before, except that a given ``s0`` is left alone and the final
 state is a new tensor (autograd needs both; ROADMAP P8 holds for calls
 without a gradient, so serving still updates its cache in place).  Its
-backward is :func:`wkv6_backward`, ``wkv6_bwd_kernel`` and
-``wkv6_bwd_finish_kernel`` in ``repro_torch/csrc/wkv6_bwd.cu``: the
-reverse recurrence of ``wkv6_bwd_ref``, with the states S_{t-1} recomputed
-forward from ``s0`` (never by dividing by w, which reaches 1e-30 and
-below), sums over a row's columns kept in f32 and summed in a fixed order,
-and no float atomics.
+backward is :func:`wkv6_backward`, ``repro_torch/csrc/wkv6_bwd.cu``: the
+forward's time-chunked scan run in reverse.  Time is cut into chunks of
+``BWD_CHUNK`` steps; each chunk's carried-in state S_c and end gradient
+G^end_c are found by products alone (a local walk of every chunk from
+zero, then a carry over the chunks each way), and every chunk is then
+walked on its own in parallel: its states recomputed forward from S_c in
+sub-chunks (never by dividing by w, which reaches 1e-30 and below), its
+gradient walked back from G^end_c.  Sums over a row's columns are kept in
+f32 and added in a fixed order, with no float atomics, so a repeat gives
+the same bits.  A call of at most ``BWD_CHUNK`` steps is two launches, a
+longer one four.  ``ref.wkv6_bwd_chunked_ref`` is the same algebra in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -48,6 +54,10 @@ HEAD_DIMS = (8, 16, 32, 64)     # the kernel's compiled head widths
 # steps per time chunk: the fastest of 32, 64 and 128 at rwkv6-3b's prefill
 # 128 and 1024 on an H100 (``python -m repro_torch.kernels.rwkv6.sweep``)
 TIME_CHUNK = 128
+# steps per time chunk of the backward: the fastest of 32, 64 and 128 at
+# rwkv6-3b's training length 1024 on an H100 (the same sweep)
+BWD_CHUNK = 64
+BWD_CHUNKS = (32, 64, 128)      # the backward's compiled chunk lengths
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,11 +74,13 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("wkv6_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wkv6_bwd_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, p]
+                                    i, i, i, i, i, p]
     lib.wkv6_bwd_launch.restype = i
-    lib.wkv6_bwd_workspace_floats.argtypes = [i, i, i, i]
+    lib.wkv6_bwd_workspace_floats.argtypes = [i, i, i, i, i]
     lib.wkv6_bwd_workspace_floats.restype = ctypes.c_longlong
     lib.wkv6_bwd_sub_steps.restype = i
+    lib.wkv6_bwd_blocks_per_sm.argtypes = [i]
+    lib.wkv6_bwd_blocks_per_sm.restype = i
     return lib
 
 
@@ -169,8 +181,8 @@ def wkv6_backward(r, k, v, w, u, s0, do, dsT=None):
     the gradients ``do`` of o and ``dsT`` of the final state (None: zero):
     each in its input's dtype, ds0 (B, H, hd, hd) f32 (the gradient of the
     zero state when ``s0`` is None).  A CUDA tensor launches K4's backward
-    (two kernels); a CPU tensor takes the plain version,
-    ``wkv6_bwd_ref``."""
+    with chunks of ``BWD_CHUNK`` steps; a CPU tensor takes the plain
+    version, ``wkv6_bwd_ref``."""
     _check(r, k, v, w, u, s0)
     b, t, h, hd = r.shape
     for name, x, shape in (("do", do, r.shape), ("dsT", dsT, (b, h, hd, hd))):
@@ -179,24 +191,48 @@ def wkv6_backward(r, k, v, w, u, s0, do, dsT=None):
     if r.device.type == "cpu":
         return wkv6_bwd_ref(r, k, v, w, u, s0, do, dsT)
     _check_card(r, k, v, w, u, s0)
+    grads = run_backward(r, k, v, w, u, s0, do, dsT, BWD_CHUNK)
+    wkv6_backward.launches += 1
+    return grads
+
+
+def run_backward(r, k, v, w, u, s0, do, dsT, chunk: int):
+    """Launch K4's backward on checked CUDA tensors with time chunks of
+    ``chunk`` steps (one of ``BWD_CHUNKS``): what ``wkv6_backward``
+    returns.  ``wkv6_backward`` calls it with ``BWD_CHUNK``; the sweep with
+    the other chunk lengths."""
+    if chunk not in BWD_CHUNKS:
+        raise ValueError(f"backward chunk {chunk} not compiled; the kernel takes {BWD_CHUNKS}")
+    b, t, h, hd = r.shape
     do = do.float().contiguous()
+    if do.data_ptr() % 16:          # the kernel copies do 16 bytes at a time
+        do = do.clone()
     dsT = None if dsT is None else dsT.float().contiguous()
     dr, dk, dv = (torch.empty(r.shape, dtype=x.dtype, device=r.device) for x in (r, k, v))
     dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
     lib = _bwd_lib()
-    ws = torch.empty(lib.wkv6_bwd_workspace_floats(b, t, h, hd), dtype=torch.float32,
+    ws = torch.empty(lib.wkv6_bwd_workspace_floats(b, t, h, hd, chunk), dtype=torch.float32,
                      device=r.device)
     err = lib.wkv6_bwd_launch(
         _DTYPES[r.dtype], *(x.data_ptr() for x in (r, k, v, w, u)),
         None if s0 is None else s0.data_ptr(), do.data_ptr(),
         None if dsT is None else dsT.data_ptr(),
-        *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd,
+        *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd, chunk,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "wkv6 backward launch")
-    wkv6_backward.launches += 1
     return dr, dk, dv, dw, du.to(u.dtype), ds0
+
+
+def bwd_geometry() -> dict:
+    """The backward's time chunk, the sub-chunk of steps whose states a
+    thread holds in registers, and how many blocks of the walk kernel fit
+    one SM at hd 64 in bf16 for each compiled chunk (on the card; builds
+    the library on first use)."""
+    lib = _bwd_lib()
+    return {"chunk": BWD_CHUNK, "sub_steps": lib.wkv6_bwd_sub_steps(),
+            "blocks_per_sm": {c: lib.wkv6_bwd_blocks_per_sm(c) for c in BWD_CHUNKS}}
 
 
 wkv6_backward.launches = 0

@@ -3,7 +3,7 @@
 calls it), the device time of each chunk size beside ``TIME_CHUNK``, and
 of one launch over all of T (phase 1 alone, no carry and no correction).
 
-    PYTHONPATH=src python -m repro_torch.kernels.rwkv6.sweep
+    PYTHONPATH=src python -m repro_torch.kernels.rwkv6.sweep [--backward]
 
 Needs a CUDA card (exits 1 without one).  Each row prints the length T
 and, for each chunk size C: the launches (1 when T <= C, else 3), device
@@ -14,8 +14,15 @@ records of 5 calls, each kernel's mean us (phases 2 and 3 start while
 the phase before them drains, so their spans include waiting).  Then, at
 each prompt length of ``chip_smoke.py``'s serving drain, ``TIME_CHUNK``
 against one launch, and the device time the chunking saves per rwkv6-3b
-drain (each prompt's difference times the model's 32 layers).  Exits 1
-if any chunk size breaks the limit.
+drain (each prompt's difference times the model's 32 layers).
+
+Then K4's backward (``wkv6_backward``) at T 128 and 1024 with bf16 r, k,
+v, from s0 and with a final-state gradient, for each backward chunk C in
+``kernel.BWD_CHUNKS`` (``BWD_CHUNK`` marked *): launches (2 when T <= C,
+else 4), device ms, the worst element's share of its limit against
+``wkv6_bwd_ref`` (3e-5 of each gradient's largest |ref| plus one bf16 ulp
+for dr, dk, dv) and each kernel's mean us.  ``--backward`` runs only this
+part.  Exits 1 if any chunk size breaks a limit.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import kernel
-from .ref import wkv6_ref
+from .ref import wkv6_bwd_ref, wkv6_ref
 
 CHUNKS = (32, 64, 128)
 # prefill 128 and 1024, the rwkv6-3b drain's shortest and longest prompts
@@ -36,6 +43,10 @@ LENGTHS = (1, 128, 134, 892, 1024)
 DRAIN_PROMPTS = (891, 554, 724, 535, 828, 858, 621, 892, 576, 366, 134, 402)
 HEADS, HEAD_DIM, LAYERS = 40, 64, 32
 K4_REL = 1e-5
+BWD_LENGTHS = (128, 1024)
+BWD_REL = 3e-5          # chip_smoke.py's WKV_BWD_REL
+BWD_KERNELS = ("wkv6_bwd_local_kernel", "wkv6_bwd_carry_kernel", "wkv6_bwd_kernel",
+               "wkv6_bwd_finish_kernel")
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -56,8 +67,9 @@ def device_ms(fn, iters: int = 20) -> float:
     return total / iters
 
 
-def kernel_us(fn, calls: int = 5) -> dict[str, float]:
-    """Mean device us of each K4 kernel over ``calls`` calls of ``fn``."""
+def kernel_us(fn, calls: int = 5,
+              names=("wkv6_kernel", "wkv6_carry_kernel", "wkv6_fix_kernel")) -> dict[str, float]:
+    """Mean device us of each named kernel over ``calls`` calls of ``fn``."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             torch.cuda._sleep(1_000_000)
@@ -67,10 +79,45 @@ def kernel_us(fn, calls: int = 5) -> dict[str, float]:
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        for name in ("wkv6_kernel", "wkv6_carry_kernel", "wkv6_fix_kernel"):
+        for name in names:
             if name in e.name():
                 per.setdefault(name, []).append((e.end_ns() - e.start_ns()) / 1e3)
     return {name: sum(us) / len(us) for name, us in per.items()}
+
+
+def backward_rows(dev, gen) -> float:
+    """Print the backward's rows; return the worst share of its limit."""
+    worst = 0.0
+    for t in BWD_LENGTHS:
+        shape = (1, t, HEADS, HEAD_DIM)
+        r, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(shape, generator=gen, device=dev) * 0.5))
+        u = 0.3 * torch.randn((HEADS, HEAD_DIM), generator=gen, device=dev)
+        s0, dst = (0.3 * torch.randn((1, HEADS, HEAD_DIM, HEAD_DIM), generator=gen, device=dev)
+                   for _ in range(2))
+        do = torch.randn(shape, generator=gen, device=dev)
+        x = (r, k, v, w, u, s0, do, dst)
+        want = wkv6_bwd_ref(*x)
+        cells = []
+        for chunk in kernel.BWD_CHUNKS:
+            got = kernel.run_backward(*x, chunk)
+            share = 0.0
+            for g, y in zip(got, want):
+                y32 = y.float()
+                lim = BWD_REL * float(y32.abs().max()) + \
+                    (2 ** -7 * y32.abs() if y.dtype == torch.bfloat16 else 0.0)
+                share = max(share, float(((g.float() - y32).abs() / lim).max()))
+            worst = max(worst, share)
+            ms = device_ms(lambda: kernel.run_backward(*x, chunk))
+            parts = kernel_us(lambda: kernel.run_backward(*x, chunk), names=BWD_KERNELS)
+            mark = "*" if chunk == kernel.BWD_CHUNK else ""
+            cells.append(f"{mark}C {chunk}: {2 if t <= chunk else 4} launches, {ms:.4f} ms "
+                         f"({share:.3f}) [" + ", ".join(
+                             f"{name.removesuffix('_kernel')} {us:.2f} us"
+                             for name, us in parts.items()) + "]")
+        print(f"backward T {t}: " + "; ".join(cells), flush=True)
+    print(f"worst share of the backward's limit: {worst:.3f}")
+    return worst
 
 
 def main() -> int:
@@ -80,9 +127,12 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True, capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    print(f"card: {card}; TIME_CHUNK {kernel.TIME_CHUNK} (marked *)")
+    print(f"card: {card}; TIME_CHUNK {kernel.TIME_CHUNK}, BWD_CHUNK {kernel.BWD_CHUNK} "
+          f"(marked *)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    if "--backward" in sys.argv[1:]:
+        return 0 if backward_rows(dev, gen) <= 1.0 else 1
     worst = 0.0
 
     def inputs(t):
@@ -132,7 +182,8 @@ def main() -> int:
     print(f"chunking saves {saved:.4f} ms of K4 device time per rwkv6-3b drain "
           f"({len(DRAIN_PROMPTS)} prompts x {LAYERS} layers)")
     print(f"worst share of K4's limit: {worst:.3f}")
-    return 0 if worst <= 1.0 else 1
+    bwd_worst = backward_rows(dev, gen)
+    return 0 if worst <= 1.0 and bwd_worst <= 1.0 else 1
 
 
 if __name__ == "__main__":

@@ -494,10 +494,14 @@ class TestK3BackwardOnCard:
 # both round once from f32 sums taken in other orders; K5's backward bit
 # for bit
 WKV_BWD_REL = 3e-5
-# b, t, h, hd: either side of the backward's 16-step sub-chunk, K4's
-# 128-step time chunk and every compiled head dim
+# b, t, h, hd: either side of the backward's 8-step sub-chunk, K4's
+# 128-step time chunk and every compiled head dim; then either side of the
+# backward's time chunk C (BWD_CHUNK, 64) and past two of them, B 2 for
+# du's order over batch rows and chunks
+_C = 64
 WKV_BWD_CASES = [(1, 1, 2, 64), (2, 17, 2, 64), (1, 130, 3, 32), (1, 40, 2, 16),
-                 (1, 33, 1, 8)]
+                 (1, 33, 1, 8), (2, _C - 1, 2, 64), (2, _C, 2, 64), (2, _C + 1, 2, 64),
+                 (2, 2 * _C + 17, 2, 64), (2, 2 * _C + 17, 3, 16)]
 # b, t, w: either side of K5's 32-step stage, and a width off 4 (4-byte copies)
 RGLRU_BWD_CASES = [(1, 1, 64), (2, 31, 64), (1, 33, 96), (2, 100, 67)]
 
@@ -573,6 +577,31 @@ class TestGradientsOnCard:
         assert _wkv_share(grads, _wkv_plain_grads(r, k, v, w, u, s0, do, dsT)) <= 1.0
         again = kernel.wkv6_backward(r, k, v, w, u, s0, do, dsT)
         assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+    @pytest.mark.parametrize("t", [100, 128, 129, 300])
+    def test_wkv6_fn_either_side_of_the_time_chunk(self, cuda, t):
+        """Through WKV6Fn, at T up to and past K4's 128-step time chunk."""
+        from repro_torch.kernels.rwkv6 import kernel
+        assert kernel.BWD_CHUNK == _C and kernel.TIME_CHUNK == 128
+        r, k, v, w, u, s0, do, dsT = _wkv_grad_inputs(cuda, 2, t, 2, 64, torch.bfloat16, seed=t)
+        leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u, s0)]
+        kernel.wkv6_cuda.launches = kernel.wkv6_backward.launches = 0
+        o, st = kernel.WKV6Fn.apply(*leaves)
+        grads = torch.autograd.grad((o, st), leaves, (do, dsT))
+        assert (kernel.wkv6_cuda.launches, kernel.wkv6_backward.launches) == (1, 1)
+        assert _wkv_share(grads, _wkv_plain_grads(r, k, v, w, u, s0, do, dsT)) <= 1.0
+
+    def test_wkv6_planted_faults_cross_the_chunks(self, cuda):
+        """Past two backward chunks: u dropped, s0 not carried in (through
+        the forward carry) and dsT dropped (through the reverse carry)."""
+        from repro_torch.kernels.rwkv6.kernel import wkv6_backward
+        r, k, v, w, u, s0, do, dsT = _wkv_grad_inputs(cuda, 1, 2 * _C + 17, 2, 64,
+                                                      torch.float32, decay=-8.0)
+        got = wkv6_backward(r, k, v, w, u, s0, do, dsT)
+        assert _wkv_share(got, _wkv_plain_grads(r, k, v, w, u, s0, do, dsT)) <= 1.0
+        for fault in ((r, k, v, w, u * 0, s0, do, dsT), (r, k, v, w, u, s0 * 0, do, dsT),
+                      (r, k, v, w, u, s0, do, dsT * 0)):
+            assert _wkv_share(got, _wkv_plain_grads(*fault)) > 1.0
 
     def test_wkv6_planted_faults_exceed_the_limit(self, cuda):
         from repro_torch.kernels.rwkv6.kernel import wkv6_backward
