@@ -224,8 +224,34 @@ failure:
    must fall; 7i: ``python -m
    repro_torch.launch.train --arch A --smoke --steps 20`` for both on the
    card.  Every cut is printed;
-8. print the ``serving``, ``training`` and ``kernels`` JSON lines, the
-   card's name and power limit, and last the ``{"ok": true, ...}`` line.
+8. distribution and the example twins (about 40-90 s): 8a runs the twins
+   that touch the device in this process at their reference's reduced
+   sizes, each also on the CPU: ``torch_trace_stencil`` (K1 once per slab,
+   16 launches, bit for bit against the plain sweep, its trace replayed),
+   ``torch_serve_router`` and ``torch_control_serving`` (K3 drains of the
+   reduced qwen2-0.5b; their printed schedule lines must equal the CPU
+   run's, and their own asserts hold tokens identical across policies and
+   under control), and ``torch_stencil_locality`` at one NCCL rank (K1 per
+   slab, 0 elements unequal to the whole-lattice K1, the bytes handed to
+   ``torch.distributed``); then, on one NCCL rank: 8b one full-width
+   qwen2-0.5b bf16 train step at phase 7b's shape with DTensor parameters
+   on a (1, 1) ``make_debug_mesh`` (placed by ``param_shardings``, the
+   optimizer state by ``opt_state_shardings``) against the same step
+   without rules: loss and every leaf bit for bit (else held to the
+   reference check's limits, loss rtol 2e-5 and leaves atol 2e-4, and the
+   gap printed), K3's forward and backward launches equal, no plain
+   attention call, and ms a step of both; 8c ``seq_parallel_attention``'s
+   per-shard piece at qwen2-0.5b's heads (14/2 x 64, bf16), T 4096 as four
+   K3 launches at q_offset 0/1024/2048/3072, windows 0 and 300, against the
+   plain ``chunked_attention``/``banded_attention`` on f32 copies of the
+   bf16 values under K3's bf16 limit, shard 1 at q_offset 0 as a planted
+   fault above it, timed beside one whole-T launch; 8d
+   ``compressed_psum`` in its three modes (against numpy, bit for bit),
+   ``lse_combine``, ``pipelined_apply`` at one stage and
+   ``ring_halo_exchange`` (zeros at both ends);
+9. print the ``serving``, ``training``, ``distribution`` and ``kernels``
+   JSON lines, the card's name and power limit, and last the
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
 the port's sources are not beside this script.
@@ -2145,6 +2171,288 @@ def arch_phase(dev, card) -> dict:
     return results
 
 
+# the reduced sizes of the example twins (their reference's own) and phase
+# 8's shapes: seq-parallel attention at qwen2-0.5b's heads, 4 shards
+SEQ_PAR = {"b": 1, "t": 4096, "hq": 14, "hkv": 2, "hd": 64, "shards": 4,
+           "windows": (0, 300)}
+DIST_TIMED_STEPS = 3          # timed train steps of each kind in 8b
+
+
+def _run_twin(name: str, **kw):
+    """An example twin's ``main`` in this process: (its printed lines, its
+    return value).  The lines are printed here too."""
+    import contextlib
+    import io
+    import runpy
+
+    mod = runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"), run_name="twin")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = mod["main"](**kw)
+    text = buf.getvalue()
+    print(text, end="")
+    return text, result
+
+
+def _schedule_lines(text: str) -> list[str]:
+    """A twin's printed lines without temporary paths (the schedule)."""
+    import re
+    return [re.sub(r"/\S*?/([\w.-]+\.trace\.jsonl)", r"<tmp>/\1", line)
+            for line in text.splitlines()]
+
+
+def distribution_phase(dev, card, counts, zero_counts) -> dict:
+    """Phase 8: the example twins that touch the device (8a), the sharded
+    train step on a (1, 1) mesh of one NCCL rank against the plain step
+    (8b), sequence-parallel attention's per-shard K3 pieces (8c) and the
+    collectives at one rank (8d)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives, pipeline
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.models import attention as attn_model
+
+    t_phase = time.perf_counter()
+    out: dict = {"twins": {}}
+
+    # -- 8a. the twins that touch the device --------------------------------
+    stamp("8a")
+    for name in ("trace_stencil", "serve_router", "control_serving"):
+        t0 = time.perf_counter()
+        cpu_text, _ = _run_twin(name, device="cpu")
+        torch.cuda.synchronize()
+        zero_counts()
+        text, _ = _run_twin(name, device="cuda")
+        torch.cuda.synchronize()
+        launched = counts()
+        same = _schedule_lines(text) == _schedule_lines(cpu_text)
+        print(f"twin {name} on the card: launches {launched}; schedule lines equal the "
+              f"CPU run's: {same} ({time.perf_counter() - t0:.1f} s with the CPU run)")
+        want_k1 = 16 if name == "trace_stencil" else 0       # 80 rows, slabs of 5
+        if not same or launched["jacobi_sweep"] != want_k1 or \
+                launched["attention_plain_calls"] or \
+                (name != "trace_stencil") != (launched["flash_attention"] > 0):
+            fail(f"twin {name}: launches {launched}, schedule equal {same}")
+        out["twins"][name] = {"launches": launched, "schedule_equal_to_cpu": same}
+        free_device_memory()
+    _, sl = _run_twin("stencil_locality", ranks=1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"twin stencil_locality, 1 NCCL rank: the rank's K1 launches {sl['k1_launches']}; "
+          f"elements unequal to the whole-lattice K1 {sl['unequal_to_whole_sweep']}; "
+          f"bytes handed {sl['bytes']}")
+    if sl["unequal_to_whole_sweep"] != [0, 0] or \
+            sl["k1_launches"] != [{"contiguous": 1, "scattered": 2}]:
+        fail(f"twin stencil_locality on the card: {sl}")
+    out["twins"]["stencil_locality"] = sl
+
+    # -- 8b-8d on one NCCL rank ---------------------------------------------
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        stamp("8b")
+        out["sharded_train_step"] = _sharded_step(dev, card, counts, zero_counts)
+        free_device_memory()
+        stamp("8c")
+        out["seq_parallel_shards"] = _seq_parallel_shards(dev, card, attn_model, k3,
+                                                          counts, zero_counts)
+        stamp("8d")
+        out["collectives"] = _one_rank_collectives(dev, collectives, pipeline)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8 took {out['seconds']:.1f} s (budget 90 s)")
+    return out
+
+
+def _sharded_step(dev, card, counts, zero_counts) -> dict:
+    """One full-width qwen2-0.5b bf16 train step at phase 7b's shape, with
+    DTensor parameters on a (1, 1) mesh, against the same step without
+    rules: the loss and every leaf bit for bit, K3's launches equal."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.distributed.sharding import make_rules, use_rules
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import build_model, param_shardings, place
+    from repro_torch.train.optimizer import (AdamWConfig, init_opt_state,
+                                             opt_state_shardings)
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(QWEN)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    batch = {name: torch.as_tensor(x, device=dev) for name, x in next(
+        make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).items()}
+    step = make_train_step(model, AdamWConfig())
+    mesh = make_debug_mesh(1, 1)
+    rules = make_rules(mesh, fsdp=False, shard_heads=False)
+
+    def plain_step():
+        return step(params, init_opt_state(params), batch)
+
+    with use_rules(rules):
+        p_sh = param_shardings(cfg, params, rules)
+        params_s = place(params, p_sh, rules)
+        opt_s = place(init_opt_state(params_s), opt_state_shardings(p_sh, rules, params), rules)
+        batch_s = {k: place(v, rules.sharding("batch", None), rules) for k, v in batch.items()}
+
+    def sharded_step():
+        with use_rules(rules):
+            return step(params_s, opt_s, batch_s)
+
+    res = {}
+    got = {}
+    for name, fn in (("plain", plain_step), ("sharded", sharded_step)):
+        torch.cuda.synchronize()
+        zero_counts()
+        k3.flash_attention_backward.launches = 0
+        t0 = time.perf_counter()
+        p_new, _, metrics = fn()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        res[name] = {"first_ms": first_ms, "k3_forward": launched["flash_attention"],
+                     "k3_backward": k3.flash_attention_backward.launches,
+                     "attention_plain_calls": launched["attention_plain_calls"]}
+        leaves = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                  for x in _tree.leaves(p_new)]
+        loss = metrics["loss"]
+        got[name] = (loss.full_tensor() if hasattr(loss, "full_tensor") else loss, leaves)
+        del p_new, metrics
+    (lp, gp), (ls, gs) = got["plain"], got["sharded"]
+    unequal = [int((a != b).sum()) for a, b in zip(gs, gp)]
+    paths = [p for p, _ in _tree.flatten_with_path(params)]
+    worst = max(range(len(gp)), key=lambda i: float((gs[i].float() - gp[i].float()).abs().max()))
+    gap = float((gs[worst].float() - gp[worst].float()).abs().max())
+    res.update(loss_plain=float(lp), loss_sharded=float(ls), unequal_leaves=sum(
+        u > 0 for u in unequal), unequal_elements=sum(unequal), worst_leaf=paths[worst],
+        worst_leaf_gap=gap)
+    del got, gp, gs
+    free_device_memory()
+    for name, fn in (("plain", plain_step), ("sharded", sharded_step)):
+        times = []
+        for _ in range(DIST_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[name]["ms_per_step"] = times
+        res[name]["mean_ms"] = float(np.mean(times))
+        free_device_memory()
+    print(f"{QWEN} bf16 train step, full width, {TRAIN_BATCH} x {TRAIN_SEQ}, DTensor "
+          f"parameters on a (1, 1) mesh of 1 NCCL rank against the same step without "
+          f"rules: loss {res['loss_sharded']:.6f} vs {res['loss_plain']:.6f}; "
+          f"{res['unequal_leaves']} leaves ({res['unequal_elements']} elements) unequal, "
+          f"worst {res['worst_leaf']} {gap:.3e}; K3 launches sharded "
+          f"{res['sharded']['k3_forward']}/{res['sharded']['k3_backward']}, plain "
+          f"{res['plain']['k3_forward']}/{res['plain']['k3_backward']} (forward/backward); "
+          f"ms a step (synchronised host clock, mean of {DIST_TIMED_STEPS}): sharded "
+          f"{res['sharded']['mean_ms']:.1f}, plain {res['plain']['mean_ms']:.1f} [{card}]")
+    k3_equal = all(res["sharded"][k] == res["plain"][k] for k in ("k3_forward", "k3_backward"))
+    if not k3_equal or res["sharded"]["k3_forward"] == 0 or \
+            res["sharded"]["attention_plain_calls"]:
+        fail(f"sharded train step: K3 launches {res['sharded']} vs plain {res['plain']}")
+    if res["unequal_elements"]:
+        # not bit for bit: hold the step to the reference check's limits
+        print(f"sharded train step not bit for bit: {res['unequal_leaves']} leaves differ; "
+              f"held to the reference check's limits (loss rtol 2e-5, leaves atol 2e-4)")
+        if abs(res["loss_sharded"] - res["loss_plain"]) > 2e-5 * abs(res["loss_plain"]) \
+                or gap > 2e-4:
+            fail(f"sharded train step off the plain step: {res}")
+    if not np.isfinite(res["loss_sharded"]):
+        fail(f"sharded train step: loss {res['loss_sharded']}")
+    return res
+
+
+def _seq_parallel_shards(dev, card, attn_model, k3, counts, zero_counts) -> dict:
+    """The per-shard piece of ``seq_parallel_attention`` at qwen2-0.5b's
+    heads: T cut into shards, one K3 launch each at ``q_offset`` = the
+    shard's start, joined and held against the plain ``chunked_attention``
+    (window 0) or ``banded_attention`` on f32 copies of the same bf16
+    values, per element within K3's bf16 limit; a wrong offset must break
+    the limit.  Times the shards' launches beside one whole-T launch."""
+    sp = SEQ_PAR
+    b, t, n = sp["b"], sp["t"], sp["shards"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((b, t, h, sp["hd"]), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (sp["hq"], sp["hkv"], sp["hkv"]))
+    tl = t // n
+    res = {}
+    tol = K3_BF16_TOL
+    for window in sp["windows"]:
+        def shards(offsets=None):
+            offs = offsets or [i * tl for i in range(n)]
+            return torch.cat([attn_model.seq_shard_attention(q[:, i * tl:(i + 1) * tl], k, v,
+                                                             offs[i], window)
+                              for i in range(n)], dim=1)
+        zero_counts()
+        got = shards()
+        torch.cuda.synchronize()
+        launched = counts()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = attn_model.banded_attention(qf, kf, vf, 0, window) if window else \
+            attn_model.chunked_attention(qf, kf, vf, 0)
+        share = float(((got.float() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())).max())
+        # planted fault: shard 1 at q_offset 0 instead of its start
+        bad = shards([0, 0] + [i * tl for i in range(2, n)])
+        fault = float(((bad.float() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())).max())
+        shard_ms = time_ms(shards, 10)
+        whole_ms = time_ms(lambda: attn_model._kernel_attention(q, k, v, causal=True,
+                                                                q_offset=0, window=window), 10)
+        print(f"seq-parallel K3 pieces, window {window}: {n} shards of {tl} at q_offset "
+              f"{[i * tl for i in range(n)]}, K3 launches {launched['flash_attention']}; "
+              f"worst element {share:.3f} of the bf16 limit (shard 1 at q_offset 0: "
+              f"{fault:.1f}x); "
+              f"{shard_ms:.4f} ms for the {n} launches, one whole-T launch {whole_ms:.4f} ms "
+              f"[{card}]")
+        if launched["flash_attention"] != n or launched["attention_plain_calls"] or \
+                share > 1.0 or fault <= 1.0:
+            fail(f"seq-parallel shards, window {window}: launches {launched}, share "
+                 f"{share}, planted fault {fault}")
+        res[str(window)] = {"launches": launched["flash_attention"], "limit_share": share,
+                            "planted_fault_share": fault, "shards_ms": shard_ms,
+                            "whole_ms": whole_ms}
+    return res
+
+
+def _one_rank_collectives(dev, collectives, pipeline) -> dict:
+    """The collectives at one NCCL rank: each against numpy or the plain
+    computation."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((8, 4)).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    res = {}
+    r, _ = collectives.compressed_psum(xt, compression="none")
+    res["none"] = bool(np.array_equal(r.cpu().numpy(), x))
+    r, _ = collectives.compressed_psum(xt, compression="bf16")
+    res["bf16"] = bool(np.array_equal(r.cpu().numpy(),
+                                      xt.to(torch.bfloat16).float().cpu().numpy()))
+    r, err = collectives.compressed_psum(xt, compression="int8")
+    scale = np.float32(max(np.abs(x).max(), np.float32(1e-12))) / np.float32(127.0)
+    qn = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+    want_err = (x.astype(np.float64) - qn.astype(np.float64) * np.float64(scale)).astype(np.float32)
+    res["int8"] = bool(np.array_equal(r.cpu().numpy(), qn.astype(np.float32) * scale)
+                       and np.array_equal(err.cpu().numpy(), want_err))
+    logits = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32)).to(dev)
+    vals = torch.from_numpy(rng.standard_normal((2, 16, 4)).astype(np.float32)).to(dev)
+    m = logits.amax(-1)
+    e = torch.exp(logits - m[..., None])
+    got = collectives.lse_combine(torch.einsum("bs,bsd->bd", e, vals), m, e.sum(-1))
+    want = torch.einsum("bs,bsd->bd", torch.softmax(logits, -1), vals)
+    res["lse_combine"] = float((got - want).abs().max()) <= 1e-5
+    w = torch.from_numpy((rng.standard_normal((1, 16, 16)) * 0.2).astype(np.float32)).to(dev)
+    xm = torch.from_numpy(rng.standard_normal((8, 4, 16)).astype(np.float32)).to(dev)
+    piped = pipeline.pipelined_apply(lambda wi, xi: torch.tanh(xi @ wi[0]), w, xm)
+    res["pipelined_apply"] = float((piped - torch.tanh(xm @ w[0])).abs().max()) <= 1e-5
+    up, down = collectives.ring_halo_exchange(xt)
+    res["ring_halo_exchange"] = bool((up == 0).all() and (down == 0).all())
+    print(f"collectives at 1 NCCL rank, each against numpy or the plain computation: {res}")
+    if not all(res.values()):
+        fail(f"collectives at one rank: {res}")
+    return res
+
+
 T_START = time.perf_counter()
 
 
@@ -2189,6 +2497,15 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"card: {card}")
+    try:
+        from torch.distributed.tensor import DTensor  # noqa: F401
+        from torch.distributed.tensor.experimental import (  # noqa: F401
+            implicit_replication, local_map)
+        from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: F401
+    except ImportError as exc:
+        fail(f"torch {torch.__version__} lacks what the distribution layer needs: {exc}")
+    print(f"torch {torch.__version__} imports DTensor, local_map, implicit_replication "
+          f"and the fake process group (FakeStore)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -3255,8 +3572,12 @@ def main() -> None:
     training["recurrent_backward"] = {k: recurrent[k] for k in (
         "wkv6_backward", "rglru_scan_backward")}
 
-    # -- 8. result lines --------------------------------------------------
+    # -- 8. distribution and the example twins ----------------------------
     stamp(8)
+    distribution = distribution_phase(dev, card, counts, zero_counts)
+
+    # -- 9. result lines --------------------------------------------------
+    stamp(9)
     kernels = []
     for name, replaces, path, path_launches in (
             ("jacobi_sweep", "src/repro/kernels/jacobi/kernel.py:32",
@@ -3278,7 +3599,12 @@ def main() -> None:
                           "run_runtime_sweep": main_launches["jacobi_sweep"],
                           f"run_runtime_sweep(spec={SPEC_SWEEP})": spec_main["launches"],
                           "make_contiguous_sweep": spmd["contiguous"]["launches"],
-                          "make_scattered_sweep": spmd["scattered"]["launches"]})
+                          "make_scattered_sweep": spmd["scattered"]["launches"],
+                          "examples/torch_trace_stencil.py": distribution["twins"][
+                              "trace_stencil"]["launches"]["jacobi_sweep"],
+                          "examples/torch_stencil_locality.py (1 NCCL rank)": sum(
+                              distribution["twins"]["stencil_locality"]["k1_launches"][0]
+                              .values())})
     for name, source, replaces, arch, worst, shapes, headline in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:26", QWEN, k3_worst, k3,
@@ -3299,10 +3625,19 @@ def main() -> None:
             "shapes": shapes})
     # K3 also carries recurrentgemma-9b's local layers, at head dim 256
     kernels[2].update(launches_by_path={
-        arch: serving[arch]["locality"]["launches"]["flash_attention"]
-        for arch in (QWEN, GRIFFIN, QWEN3)}, shapes_hd256=k3g, shapes_new=k3n,
-        plain_long_prefill_vs_k3=long_plain)
-    kernels.append(k3_backward)
+        **{arch: serving[arch]["locality"]["launches"]["flash_attention"]
+           for arch in (QWEN, GRIFFIN, QWEN3)},
+        **{f"examples/torch_{name}.py": distribution["twins"][name]["launches"][
+            "flash_attention"] for name in ("serve_router", "control_serving")},
+        "sharded train step (1, 1) mesh": distribution["sharded_train_step"]["sharded"][
+            "k3_forward"],
+        "seq_parallel_attention shards": sum(
+            r["launches"] for r in distribution["seq_parallel_shards"].values())},
+        shapes_hd256=k3g, shapes_new=k3n, plain_long_prefill_vs_k3=long_plain)
+    kernels.append(k3_backward | {"launches_by_path": {
+        "Trainer.run (phase 7d)": k3_backward["launches"],
+        "sharded train step (1, 1) mesh": distribution["sharded_train_step"]["sharded"][
+            "k3_backward"]}})
     for name, arch in (("wkv6_backward", RWKV), ("rglru_scan_backward", GRIFFIN)):
         trained = training["archs"][arch]["trainer"]
         kernels.append({**recurrent[name], "launches": trained["launches"][name],
@@ -3311,6 +3646,7 @@ def main() -> None:
                                 f"{trained['seq']})"})
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"distribution": distribution}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

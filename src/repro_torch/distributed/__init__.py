@@ -1,3 +1,5 @@
-"""Fault handling for training: a copy of ``repro.distributed.fault``
-(numpy only), importing the port's own ``core.assignment``.  Sharding,
-collectives and the pipeline schedule wait for a mesh (ROADMAP E3)."""
+"""Distribution for the port: ``sharding`` (logical-axis rules over a
+``DeviceMesh``, DTensor placements), ``collectives`` (compressed all-reduce,
+LSE combine, halo exchange on ``torch.distributed``), ``pipeline`` (the
+GPipe stage loop) and ``fault`` (a copy of ``repro.distributed.fault``,
+numpy only, importing the port's own ``core.assignment``)."""

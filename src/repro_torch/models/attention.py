@@ -30,20 +30,39 @@ zeroes the rest, as the reference's rolled write leaves them.  A "cross"
 layer's prefill projects K/V from ``cross_x`` (no rope, no causal mask)
 and caches them as ``xk``/``xv``; its decode reads them.
 
-The reference's ``seq_parallel_attention`` returns ``None`` without mesh
-rules, and the port has no mesh yet (ROADMAP E3), so a long prefill goes
-straight to the banded or chunked form.  The reference's ``shard``
-constraints are no-ops without mesh rules and are dropped.
+Under mesh rules (``distributed/sharding.py``) the reference's ``shard``
+constraints apply at its sites (no-ops without rules), and a causal
+prefill longer than 2048 tokens first tries ``seq_parallel_attention``:
+when the rules shard the query sequence (``seq_q``, the case
+``shard_heads=False`` exists for) over n > 1 ranks in pieces that are
+multiples of 128, each rank attends its own query shard, at ``offset =
+pos_offset + idx * T/n``, to the replicated keys.  The shard's piece
+(``seq_shard_attention``) is K3 at ``q_offset=offset`` with the window on
+a CUDA tensor (P4: K3 carries every prefill), and the reference's
+``chunked_attention`` or windowed local form otherwise; the result is a
+DTensor sharded on the sequence, the reference's ``out_specs``.
+
+On DTensor inputs attention, K3 or the plain forms, runs on each rank's
+local shards (``_on_head_shards``: batch over the data axis, query heads
+over the model axis when the rules shard heads, each shard with the kv
+heads its query heads read): K3 reads raw device pointers, and DTensor
+cannot split sharded heads into the (KV, G) groups of the plain forms.
+``FlashAttentionFn``'s backward runs on the same shards.  One more site
+is the port's own, for DTensor: the projections are constrained to the
+rules' head placement before they are split into heads
+(``_project_qkv``).  Without rules nothing here changes.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import current_rules, is_dtensor, on_local_shards, shard
 from ..kernels.flash_attention.kernel import FlashAttentionFn, flash_attention
-from .common import Params, apply_rope, dense_init, matmul_lowp
+from .common import Params, apply_rope, dense_init, draw_device, matmul_lowp
 
 NEG_INF = -2.0e38
 DIRECT_MAX_T = 2048     # longest prefill the reference gives direct_attention
@@ -64,7 +83,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, d_model: Optional[int] = N
     }
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+            p[name] = torch.zeros((width,), dtype=dtype, device=draw_device(gen))
     return p
 
 
@@ -76,6 +95,12 @@ def _project_qkv(p: Params, x: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig
     v = xkv @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    # under a mesh, the projections' head dims as the rules place heads,
+    # before they are split into heads (DTensor may otherwise leave the
+    # few kv heads sharded over more ranks than there are heads)
+    q = shard(q, "batch", None, "heads")
+    k = shard(k, "batch", None, "kv_heads")
+    v = shard(v, "batch", None, "kv_heads")
     b, t = x.shape[:2]
     tk = xkv.shape[1]
     q = q.reshape(b, t, num_heads, hd)
@@ -195,6 +220,71 @@ def banded_attention(q, k, v, q_offset: int, window: int) -> torch.Tensor:
     return out
 
 
+def _windowed_seq_local(q_local, k, v, offset: int, window: int) -> torch.Tensor:
+    """Local-window attention for one sequence shard: q_local (B,Tl,H,hd)
+    holds global positions [offset, offset+Tl); k/v are the full (replicated)
+    sequence.  Only rows [offset-window, offset+Tl) of k/v can contribute,
+    so slice exactly those (front-padded by ``window`` to keep the slice
+    in-bounds): compute is O(Tl * (Tl + window)), not O(Tl * S)."""
+    tl = q_local.shape[1]
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    ks, vs = kp[:, offset:offset + tl + window], vp[:, offset:offset + tl + window]
+    q_pos = offset + torch.arange(tl, device=q_local.device)[:, None]
+    k_pos = offset - window + torch.arange(tl + window, device=q_local.device)[None, :]
+    ok = (k_pos <= q_pos) & (k_pos > q_pos - window) & (k_pos >= 0)
+    mask = torch.where(ok, 0.0, NEG_INF).float()
+    return direct_attention(q_local, ks, vs, mask)
+
+
+def seq_shard_attention(q_local, k, v, offset: int, window: int, *,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """One sequence shard's causal attention: q_local (B,Tl,H,hd) at global
+    positions [offset, offset+Tl) against the full k/v (B,S,KV,hd).  K3 at
+    ``q_offset=offset`` with the window on a CUDA tensor (``use_kernel``);
+    else the reference's windowed local form or ``chunked_attention`` with
+    query chunks no longer than the shard."""
+    if use_kernel and q_local.device.type == "cuda":
+        return _kernel_attention(q_local, k, v, causal=True, q_offset=offset,
+                                 window=window)
+    if window > 0:
+        return _windowed_seq_local(q_local, k, v, offset, window)
+    # q_chunk never larger than the local shard
+    return chunked_attention(q_local, k, v, offset, q_chunk=min(512, q_local.shape[1]))
+
+
+def seq_parallel_attention(q, k, v, *, pos_offset: int, window: int, rules,
+                           use_kernel: bool = True) -> Optional[torch.Tensor]:
+    """Sequence-parallel (context-parallel) attention over the ``seq_q`` axis.
+
+    Used when q heads cannot shard across the model axis: q's sequence is
+    sharded instead, k/v stay replicated (they are small: kv_heads <= 2 for
+    these archs), and each rank computes attention only for its own
+    sequence shard.  Returns None when not applicable (the caller falls
+    back): no rules, a ``seq_q`` rule that is missing or not one mesh dim,
+    one shard, or shards that do not divide T or are not multiples of 128.
+    Otherwise a DTensor (B, T, H*hd) sharded on the sequence.
+    """
+    if rules is None:
+        return None
+    axis = rules.rules.get("seq_q")
+    if axis is None or not isinstance(axis, str):
+        return None
+    n = rules.axis_size(axis)
+    tq = q.shape[1]
+    if n <= 1 or tq % n or (tq // n) % 128:
+        return None
+
+    def local(qk, kk, vv):
+        offset = pos_offset + rules.coordinate(axis) * qk.shape[1]
+        return seq_shard_attention(qk, kk, vv, offset, window, use_kernel=use_kernel)
+
+    return on_local_shards(local, [(q, ("batch", "seq_q", None, None)),
+                                   (k, ("batch", None, "kv_heads", None)),
+                                   (v, ("batch", None, "kv_heads", None))],
+                           ("batch", "seq_q", None), rules)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, ring: bool = False,
                      window: int = 0) -> torch.Tensor:
     """One-token decode: q (B,1,H,hd) vs cache (B,S,KV,hd).
@@ -227,7 +317,8 @@ def _kernel_attention(q, k, v, *, causal: bool, q_offset: int,
     memory, so neither side copies.  The block sizes only have to divide.
     With grad mode on and an input that requires grad (training), K3 runs
     as ``FlashAttentionFn``, whose backward is K3's backward kernel;
-    otherwise (serving) it is launched as a plain call."""
+    otherwise (serving) it is launched as a plain call.  Under mesh rules
+    its callers hand it each rank's local shards."""
     b, tq, h, hd = q.shape
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -236,6 +327,35 @@ def _kernel_attention(q, k, v, *, causal: bool, q_offset: int,
         out = flash_attention(qt, kt, vt, causal=causal, window=window,
                               q_offset=q_offset, bq=tq, bk=k.shape[1])
     return out.transpose(1, 2).reshape(b, tq, h * hd)
+
+
+def _on_head_shards(fn, q, k, v) -> torch.Tensor:
+    """``fn(q, k, v)`` (attention on (B, T, H, hd) tensors, (B, Tq, H*hv)
+    out) on each rank's shards of DTensors: batch over the data axis,
+    query heads as the rules place them, k/v replicated over the model
+    axis.  When the query heads are sharded, a shard keeps only the kv
+    heads its query heads read (GQA maps query head j to kv head
+    j // (H / KV)); DTensor cannot split the heads into (KV, G) groups
+    over more ranks than there are kv heads."""
+    rules = current_rules()
+    h, kvh = q.shape[2], k.shape[2]
+    group = h // kvh
+
+    def local(ql, kl, vl):
+        h_l = ql.shape[2]
+        if h_l != h:
+            first = rules.coordinate(rules.rules["heads"]) * h_l
+            lo, hi = first // group, (first + h_l - 1) // group + 1
+            if h_l % (hi - lo):
+                raise ValueError(f"{h_l} query heads a shard cannot share "
+                                 f"{hi - lo} kv heads evenly")
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl)
+
+    return on_local_shards(local, [(q, ("batch", None, "heads", None)),
+                                   (k, ("batch", None, "kv_heads", None)),
+                                   (v, ("batch", None, "kv_heads", None))],
+                           ("batch", None, "heads"), rules)
 
 
 def _ring_write(buf: torch.Tensor, x: torch.Tensor, pos_offset: int) -> None:
@@ -294,14 +414,18 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     cache["xv"].copy_(v)
                     k, v = cache["xk"], cache["xv"]
                 new_cache = {"xk": k, "xv": v}
-        tq = q.shape[1]
-        if kernel:
-            out = _kernel_attention(q, k, v, causal=False, q_offset=0)
-        elif tq == 1:
-            out = decode_attention(q, k, v, k.shape[1])
-        else:
+
+        def attend_cross(q, k, v):
+            tq = q.shape[1]
+            if kernel:
+                return _kernel_attention(q, k, v, causal=False, q_offset=0)
+            if tq == 1:
+                return decode_attention(q, k, v, k.shape[1])
             mask = torch.zeros((tq, k.shape[1]), dtype=torch.float32, device=x.device)
-            out = direct_attention(q, k, v, mask)
+            return direct_attention(q, k, v, mask)
+
+        out = _on_head_shards(attend_cross, q, k, v) if is_dtensor(q) else \
+            attend_cross(q, k, v)
         return matmul_lowp(out, p["wo"]), new_cache
 
     q, k, v = _project_qkv(p, x, x, cfg, h, kv)
@@ -324,6 +448,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         slot = pos_offset % s_cache if ring else pos_offset
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        k_cache = shard(k_cache, "batch", "kv_seq", "kv_heads", None)
+        v_cache = shard(v_cache, "batch", "kv_seq", "kv_heads", None)
         if kernel:
             # K3 over the whole cache with the causal mask at q_offset = pos
             # and NO window: it sees slots <= pos, which is every slot once
@@ -340,19 +466,30 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return out @ p["wo"], {"k": k_cache, "v": v_cache}
 
     # train / prefill
-    if kernel:
-        out = _kernel_attention(q, k, v, causal=causal, q_offset=pos_offset,
-                                window=window)
-    elif tq <= DIRECT_MAX_T:
-        mask = _causal_mask(tq, tq, pos_offset, window, device=x.device) if causal \
-            else torch.zeros((tq, tq), dtype=torch.float32, device=x.device)
-        out = direct_attention(q, k, v, mask)
-    elif 0 < window <= tq // 2:
-        # causal or not, as in the reference (its seq_parallel_attention,
-        # tried first for a causal prefill, returns None without mesh rules)
-        out = banded_attention(q, k, v, pos_offset, window)
-    else:
-        out = chunked_attention(q, k, v, pos_offset, window)
+    q = shard(q, "batch", "seq_q", "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
+    out = None
+    if causal and tq > DIRECT_MAX_T:
+        # the long causal prefill tries sequence parallelism first (None
+        # without mesh rules that shard the query sequence)
+        out = seq_parallel_attention(q, k, v, pos_offset=pos_offset, window=window,
+                                     rules=current_rules(), use_kernel=kernel)
+
+    def attend(q, k, v):
+        if kernel:
+            return _kernel_attention(q, k, v, causal=causal, q_offset=pos_offset,
+                                     window=window)
+        if tq <= DIRECT_MAX_T:
+            mask = _causal_mask(tq, tq, pos_offset, window, device=x.device) if causal \
+                else torch.zeros((tq, tq), dtype=torch.float32, device=x.device)
+            return direct_attention(q, k, v, mask)
+        if 0 < window <= tq // 2:
+            return banded_attention(q, k, v, pos_offset, window)
+        return chunked_attention(q, k, v, pos_offset, window)
+
+    if out is None:
+        out = _on_head_shards(attend, q, k, v) if is_dtensor(q) else attend(q, k, v)
 
     new_cache = None
     if cache is not None:

@@ -5,12 +5,18 @@ tensors and layers are plain functions, so the reference's functional
 signatures carry over.  Initialisers take an explicit ``torch.Generator``
 and draw on its device; they do not reproduce ``jax.random``'s numbers, so
 the parity tests carry the reference's parameters across with
-``repro_torch.models.convert`` instead.
+``repro_torch.models.convert`` instead.  Inside ``abstract_init()`` they
+put everything on ``meta`` (``draw_device``): shapes and dtypes with no
+memory, which is how ``Model.abstract_params`` builds a full-width tree.
+A CPU generator is taken there and never advanced (a ``torch.Generator``
+cannot live on ``meta``; the draws on ``meta`` tensors read none of it).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Any
 
 import torch
@@ -23,12 +29,34 @@ Params = dict[str, Any]
 # initializers
 # ---------------------------------------------------------------------------
 
+_ABSTRACT = threading.local()
+
+
+def draw_device(gen: torch.Generator) -> torch.device:
+    """Where an initialiser puts what it draws from ``gen``: the
+    generator's device, or ``meta`` inside ``abstract_init()``."""
+    return torch.device("meta") if getattr(_ABSTRACT, "on", False) else gen.device
+
+
+@contextlib.contextmanager
+def abstract_init():
+    """Initialisers build ``meta`` tensors (no memory) while open."""
+    prev = getattr(_ABSTRACT, "on", False)
+    _ABSTRACT.on = True
+    try:
+        yield
+    finally:
+        _ABSTRACT.on = prev
+
+
 def _trunc_normal(gen: torch.Generator, shape: tuple[int, ...],
                   std: float, dtype: torch.dtype) -> torch.Tensor:
     """Standard normal truncated to [-3, 3], times ``std``, drawn in f32 on
     the generator's device and then cast (as the reference does).  Scaled
     in place: a full-width embedding is gigabytes in f32."""
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t = torch.empty(shape, dtype=torch.float32, device=draw_device(gen))
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return t.mul_(std).to(dtype)
 

@@ -19,10 +19,13 @@ Three forms, as in the reference:
 MLA runs its plain path on every device, the card included: its head
 widths (qk 96 = 64 + 32, v 64 at minicpm3-4b) are not K3's (equal q/k/v
 head dims from 16/32/64/128/256), and the reference calls no Pallas kernel
-here either.  ``_absorbed_chunked`` keeps the reference's signature; its
-sequence-parallel ``shard_map`` branch needs mesh rules, which the port
-does not have yet (ROADMAP E3), so it runs the local form.  The cache is
-written in place (P7).
+here either.  Under mesh rules that shard the query sequence (``seq_q``),
+the long uncached prefill first tries ``attention.seq_parallel_attention``
+(its plain piece), and ``_absorbed_chunked`` runs each rank's query shard
+at its own offset when the shards are multiples of 512, as the
+reference's ``shard_map`` branches do; otherwise, and always without
+rules, both run their local forms.  The reference's ``shard`` constraints
+are at its sites.  The cache is written in place (P7).
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from typing import Optional
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import NEG_INF, _causal_mask, chunked_attention
-from .common import Params, apply_rope, dense_init, rms_norm, rms_norm_init
+from ..distributed.sharding import current_rules, on_local_shards, shard
+from .attention import NEG_INF, _causal_mask, chunked_attention, seq_parallel_attention
+from .common import Params, apply_rope, dense_init, draw_device, rms_norm, rms_norm_init
 
 
 def mla_init(gen: torch.Generator, cfg: ModelConfig,
@@ -42,10 +46,10 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig,
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
         "w_dq": dense_init(gen, d, m.q_lora_rank, dtype),
-        "q_norm": rms_norm_init(m.q_lora_rank, dtype, gen.device),
+        "q_norm": rms_norm_init(m.q_lora_rank, dtype, draw_device(gen)),
         "w_uq": dense_init(gen, m.q_lora_rank, h * qk, dtype),
         "w_dkv": dense_init(gen, d, m.kv_lora_rank, dtype),
-        "kv_norm": rms_norm_init(m.kv_lora_rank, dtype, gen.device),
+        "kv_norm": rms_norm_init(m.kv_lora_rank, dtype, draw_device(gen)),
         "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim, dtype),
         "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dtype),
         "w_kr": dense_init(gen, d, m.qk_rope_head_dim, dtype),
@@ -88,8 +92,23 @@ def _absorbed_chunked_local(q_lat, q_rope, ckv, kr, q_offset: int, scale: float,
 
 
 def _absorbed_chunked(q_lat, q_rope, ckv, kr, q_offset: int, scale: float) -> torch.Tensor:
-    """The reference's sequence-parallel wrapper: without mesh rules (the
-    port has none yet, ROADMAP E3) it is the local form."""
+    """Sequence-parallel wrapper: each rank's query shard at its own offset
+    against the whole latent, when the rules shard the query sequence over
+    n > 1 ranks in pieces that are multiples of 512; else the local form."""
+    rules = current_rules()
+    axis = rules.rules.get("seq_q") if rules is not None else None
+    t = q_lat.shape[1]
+    if isinstance(axis, str):
+        n = rules.axis_size(axis)
+        if n > 1 and t % n == 0 and (t // n) % 512 == 0:
+            def local(ql, qr, c, k):
+                off = q_offset + rules.coordinate(axis) * ql.shape[1]
+                return _absorbed_chunked_local(ql, qr, c, k, off, scale)
+            return on_local_shards(local, [(q_lat, ("batch", "seq_q", None, None)),
+                                           (q_rope, ("batch", "seq_q", None, None)),
+                                           (ckv, ("batch", None, None)),
+                                           (kr, ("batch", None, None))],
+                                   ("batch", "seq_q", None, None), rules)
     return _absorbed_chunked_local(q_lat, q_rope, ckv, kr, q_offset, scale)
 
 
@@ -116,7 +135,8 @@ def mla_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         # in place (P7): slots pos_offset.. of the latent cache
         cache["ckv"][:, pos_offset:pos_offset + t] = ckv_new.to(cache["ckv"].dtype)
         cache["kr"][:, pos_offset:pos_offset + t] = kr_new.to(cache["kr"].dtype)
-        ckv, kr = cache["ckv"], cache["kr"]
+        ckv = shard(cache["ckv"], "batch", "kv_seq", None)
+        kr = shard(cache["kr"], "batch", "kv_seq", None)
         new_cache = {"ckv": ckv, "kr": kr}
         s = ckv.shape[1]
     else:
@@ -132,7 +152,12 @@ def mla_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             [(ckv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim),
              kr[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)], dim=-1)
         v_full = (ckv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
-        o = chunked_attention(q_full, k_full, v_full, pos_offset)
+        # K3 takes no qk 96 / v 64 heads: the plain shard piece
+        o = seq_parallel_attention(q_full, k_full, v_full, pos_offset=pos_offset,
+                                   window=0, rules=current_rules(), use_kernel=False)
+        if o is None:
+            q_full = shard(q_full, "batch", "seq_q", None, None)
+            o = chunked_attention(q_full, k_full, v_full, pos_offset)
         return o @ p["wo"], new_cache
 
     if cache is not None and (t > 2048 or t == 1):
@@ -148,7 +173,9 @@ def mla_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             w = torch.softmax(logits, dim=-1).to(x.dtype)
             o_lat = torch.einsum("bhts,bsr->bthr", w, ckv)
         else:
-            o_lat = _absorbed_chunked(q_lat, q_rope, ckv, kr, pos_offset, scale)
+            q_lat = shard(q_lat, "batch", "seq_q", None, None)
+            q_rope_s = shard(q_rope, "batch", "seq_q", None, None)
+            o_lat = _absorbed_chunked(q_lat, q_rope_s, ckv, kr, pos_offset, scale)
         o = torch.einsum("bthr,rhv->bthv", o_lat, w_uv)
         return o.reshape(b, t, h * m.v_head_dim) @ p["wo"], new_cache
 

@@ -1,12 +1,14 @@
 """MLP blocks: gated (SwiGLU/GeGLU) and plain (whisper's GELU MLP).
 
-The port of ``repro.models.mlp``.  The reference's ``shard`` constraint on
-the hidden activation is a no-op without mesh rules and is dropped here.
+The port of ``repro.models.mlp``.  The hidden activation carries the
+reference's ``shard`` constraint ("ffn" over the model axis), a no-op
+without mesh rules.
 """
 from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import shard
 from .common import Params, act_fn, dense_init, matmul_lowp
 
 
@@ -25,4 +27,5 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         h = act_fn(act)(x @ p["w_gate"]) * h
     else:
         h = act_fn(act)(h)
+    h = shard(h, "batch", None, "ffn")
     return matmul_lowp(h, p["w_down"])

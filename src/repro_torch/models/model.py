@@ -22,18 +22,37 @@ input, and its decoder adds learned positions (``dec_pos``); the VLM takes
 ``extras["vision"]`` (patch embeddings already at the decoder's width) as
 its cross-attention input.  MoE and MLA live in ``models/moe.py`` and
 ``models/mla.py``.
+
+Sharding: ``param_logical_axes`` gives every parameter leaf
+its logical axes from the reference's ``_LEAF_AXES``/``_MOE_LEAF_AXES``
+tables, and ``param_shardings`` their DTensor placements under a
+``ShardingRules`` (``distributed/sharding.py``); ``place`` puts a tree on
+the mesh.  A model whose parameters are DTensors, run under ``use_rules``,
+runs sharded: the reference's ``shard`` constraints are back at its sites,
+and the kernels run on local shards.  ``abstract_params``, ``input_specs``
+and ``cache_specs`` are ``meta`` tensors: shapes and dtypes with no memory,
+at full width too (the reference's ``jax.eval_shape`` and
+``ShapeDtypeStruct``s).  The port's stack is a list of per-layer dicts, so
+its leaves have no stacked leading axis: a leaf's logical axes are the
+table's entry itself.  One site differs under a mesh for DTensor's sake:
+token ids that are a DTensor are looked up on each rank's shards (the
+table gathered whole, the rank's batch rows of ids, the plain indexing),
+because PyTorch 2.11's sharding rule for the ``index_put`` in indexing's
+backward fails on sharded ids.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from .._device import resolve_device
-from ..configs.base import ModelConfig
-from .common import (Params, cross_entropy, embed_init, layer_norm,
-                     layer_norm_init, rms_norm, rms_norm_init,
+from .._tree import flatten_with_path, unflatten
+from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.sharding import as_dtensor, is_dtensor, on_local_shards, shard
+from .common import (Params, abstract_init, cross_entropy, draw_device, embed_init,
+                     layer_norm, layer_norm_init, rms_norm, rms_norm_init,
                      sinusoidal_positions)
 from .transformer import apply_stack, stack_cache_specs, stack_init
 
@@ -72,16 +91,16 @@ class Model:
     def init_params(self, generator: torch.Generator) -> Params:
         """Random parameters at the config's widths, drawn from
         ``generator`` (which must live on the model's device)."""
-        if generator.device.type != self.device.type:
+        if draw_device(generator).type not in ("meta", self.device.type):
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
         dt = self.dtype
         p: Params = {
             "tok": embed_init(generator, cfg.vocab_padded(), cfg.d_model, dt),
-            "final_norm": (rms_norm_init(cfg.d_model, dt, generator.device)
+            "final_norm": (rms_norm_init(cfg.d_model, dt, draw_device(generator))
                            if cfg.norm == "rms" else
-                           layer_norm_init(cfg.d_model, dt, generator.device)),
+                           layer_norm_init(cfg.d_model, dt, draw_device(generator))),
             "stack": stack_init(generator, cfg, dt),
         }
         if not cfg.tie_embeddings:
@@ -91,14 +110,19 @@ class Model:
             ecfg = _enc_cfg(cfg)
             p["encoder"] = {
                 "stack": stack_init(generator, ecfg, dt),
-                "final_norm": (layer_norm_init(ecfg.d_model, dt, generator.device)
+                "final_norm": (layer_norm_init(ecfg.d_model, dt, draw_device(generator))
                                if cfg.norm == "layer" else
-                               rms_norm_init(ecfg.d_model, dt, generator.device)),
+                               rms_norm_init(ecfg.d_model, dt, draw_device(generator))),
             }
             # whisper's decoder uses learned absolute positions
             p["dec_pos"] = (torch.randn((self.max_pos, cfg.d_model), generator=generator,
-                                        device=generator.device) * 0.01).to(dt)
+                                        device=draw_device(generator)) * 0.01).to(dt)
         return p
+
+    def abstract_params(self) -> Params:
+        """The parameter tree as ``meta`` tensors: no memory, no draws."""
+        with abstract_init():
+            return self.init_params(torch.Generator())
 
     # -- encoder (whisper) ----------------------------------------------------
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -118,9 +142,17 @@ class Model:
                 last_only: bool = False):
         """Returns (logits, new_caches, aux)."""
         cfg = self.cfg
-        x = params["tok"][tokens]
+        if is_dtensor(tokens):
+            # under a mesh, on local shards (PyTorch 2.11's sharding rule
+            # for the index_put of indexing's backward fails on sharded ids)
+            x = on_local_shards(lambda tok, ids: tok[ids],
+                                [(params["tok"], (None, None)), (tokens, ("batch", None))],
+                                ("batch", None, None))
+        else:
+            x = params["tok"][tokens]
         if self._embed_scale is not None:
             x = x * self._embed_scale
+        x = shard(x, "batch", None, None)
 
         cross_x = None
         if cfg.encoder is not None:
@@ -143,6 +175,7 @@ class Model:
             x = x[:, -1:]
         head = params["head"] if not cfg.tie_embeddings else params["tok"].T
         logits = x @ head.to(x.dtype)
+        logits = shard(logits, "batch", None, "vocab")
         return logits, new_caches, aux
 
     # -- train ---------------------------------------------------------------
@@ -166,6 +199,35 @@ class Model:
                                          caches=caches)
         return logits, caches
 
+    # -- specs (abstract inputs) ----------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> dict[str, torch.Tensor]:
+        """The batch of a ``shape`` cell as ``meta`` tensors."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32, dt = torch.int32, self.dtype
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind == "train":
+            specs = {"tokens": meta((b, s), i32), "labels": meta((b, s), i32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": meta((b, s), i32)}
+        else:  # decode
+            specs = {"tokens": meta((b, 1), i32)}
+        if cfg.encoder is not None and shape.kind != "decode":
+            e = cfg.encoder
+            specs["frames"] = meta((b, e.num_frames, e.d_model), dt)
+        if cfg.vision is not None and shape.kind != "decode":
+            specs["vision"] = meta((b, cfg.vision.num_image_tokens, cfg.d_model), dt)
+        return specs
+
+    def cache_specs(self, shape: ShapeConfig) -> list[Params]:
+        """The per-layer decode caches of a ``shape`` cell as ``meta`` tensors."""
+        specs = stack_cache_specs(self.cfg, shape.global_batch, shape.seq_len, self.dtype)
+        return [{name: torch.empty(shp, dtype=dt, device="meta")
+                 for name, (shp, dt) in spec.items()} for spec in specs]
+
     def init_cache(self, batch: int, max_seq: int) -> list[Params]:
         """Zeroed per-layer caches on the model's device."""
         specs = stack_cache_specs(self.cfg, batch, max_seq, self.dtype)
@@ -177,3 +239,108 @@ def build_model(cfg: ModelConfig, max_pos: int = 4096, *,
                 device: str | torch.device | None = None,
                 use_kernel: bool = True) -> Model:
     return Model(cfg, max_pos=max_pos, device=device, use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# parameter logical axes (for DTensor placements via distributed.sharding rules)
+# ---------------------------------------------------------------------------
+
+_LEAF_AXES: dict[str, tuple] = {
+    "tok": ("vocab", None),
+    "head": (None, "vocab"),
+    "dec_pos": (None, None),
+    "wq": ("fsdp", "qheads"),
+    "wk": ("fsdp", None),
+    "wv": ("fsdp", None),
+    "wo": ("qheads", "fsdp"),
+    "bq": ("qheads",), "bk": (None,), "bv": (None,),
+    "w_up": ("fsdp", "ffn"), "w_gate": ("fsdp", "ffn"),
+    "w_down": ("ffn", "fsdp"),
+    "router": (None, None),
+    # MLA
+    "w_dq": ("fsdp", None), "w_uq": (None, "qheads"),
+    "w_dkv": ("fsdp", None), "w_uk": (None, "qheads"),
+    "w_uv": (None, "qheads"), "w_kr": (None, None),
+    # RG-LRU
+    "w_gate_branch": ("fsdp", "lru"), "w_x_branch": ("fsdp", "lru"),
+    "conv_w": (None, "lru"), "conv_b": ("lru",),
+    # block-diagonal gates: block dim sharded like the lru channels, so the
+    # per-block matmuls contract entirely within a shard (no collective)
+    "w_a": ("lru_blocks", None, None), "b_a": ("lru",),
+    "w_i": ("lru_blocks", None, None), "b_i": ("lru",),
+    "lam": ("lru",), "w_out": ("lru", "fsdp"),
+    # RWKV
+    "w_r": ("fsdp", None), "w_k": ("fsdp", None), "w_v": ("fsdp", None),
+    "w_g": ("fsdp", None), "w_o": ("fsdp", None),
+    "decay_lora_a": ("fsdp", None), "decay_lora_b": (None, None),
+    "mix_lora_a": ("fsdp", None), "mix_lora_b": (None, None),
+    "mix_base": (None, None), "decay_base": (None,),
+    "u": (None, None), "gn_scale": (None,), "gn_bias": (None,),
+    "w_ck": ("fsdp", "rwkv_ffn"), "w_cv": ("rwkv_ffn", "fsdp"),
+    "w_cr": ("fsdp", None),
+    "cmix_k": (None,), "cmix_r": (None,),
+}
+
+_MOE_LEAF_AXES = {
+    "w_gate": ("experts", "fsdp", None),
+    "w_up": ("experts", "fsdp", None),
+    "w_down": ("experts", None, "fsdp"),
+}
+
+
+def _leaf_axes(path: str, leaf) -> tuple:
+    """A leaf's logical axes from its ``/``-joined path (``_tree``'s form)."""
+    names = path.split("/")
+    name = names[-1]
+    table = _MOE_LEAF_AXES if ("moe" in names and name in _MOE_LEAF_AXES) else _LEAF_AXES
+    axes = table.get(name)
+    nd = len(leaf.shape)
+    if axes is None:
+        return (None,) * nd
+    if len(axes) < nd:                 # stacked leading axes (none in the port's stack)
+        return (None,) * (nd - len(axes)) + tuple(axes)
+    return tuple(axes[:nd])
+
+
+def param_logical_axes(cfg: ModelConfig, params: Params):
+    """Tree of logical-axis tuples matching the params tree."""
+    return unflatten(params, [_leaf_axes(path, leaf)
+                              for path, leaf in flatten_with_path(params)])
+
+
+def param_shardings(cfg: ModelConfig, params: Params, rules):
+    """DTensor placements (one list per leaf) for every param leaf under
+    the given rules."""
+    return unflatten(params, [rules.sharding(*_leaf_axes(path, leaf))
+                              for path, leaf in flatten_with_path(params)])
+
+
+def place(tree: Any, shardings: Any, rules) -> Any:
+    """Every leaf of ``tree`` as a DTensor with the placements of the
+    matching leaf of ``shardings``.  A plain leaf must be the same tensor
+    on every rank: each rank keeps its own shard, nothing is sent; a
+    DTensor leaf is redistributed."""
+    out = [as_dtensor(x, rules.mesh).redistribute(rules.mesh, want)
+           for (_, x), want in zip(flatten_with_path(tree), _placement_leaves(tree, shardings))]
+    return unflatten(tree, out)
+
+
+def _placement_leaves(tree: Any, shardings: Any) -> list:
+    """The placement lists of ``shardings`` in the order of ``tree``'s
+    leaves (a placement list is a leaf there, not a subtree)."""
+    out = []
+
+    def walk(t, sh):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], sh[k])
+        elif isinstance(t, (list, tuple)):
+            for a, b in zip(t, sh):
+                walk(a, b)
+        else:
+            out.append(sh)
+
+    walk(tree, shardings)
+    return out

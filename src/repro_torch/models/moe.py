@@ -6,9 +6,11 @@ experts; each expert takes at most ``cap`` (token, choice) pairs per token
 group, in arrival order (token-major), and the overflow is dropped to the
 residual path: the paper's bounded stealing.  ``_local_expert_bias`` is its
 "local queue first" in logit space: a bias towards experts resident with
-the token group.  It reads the mesh's expert axis; the port has no mesh
-yet (ROADMAP E3), so the axis size is 1 and the bias is zero, as the
-reference gives without mesh rules.
+the token group.  It reads the size A of the mesh dim that the rules give
+"experts" (1 without rules, where the bias is zero, as in the reference).
+The batched form's expert inputs and outputs carry the reference's
+``shard`` constraints (groups over the batch axes, experts over the model
+axis), no-ops without rules.
 
 The block is split into its four phases so that each can be timed alone:
 ``route`` (router product, softmax, top-k), ``dispatch`` (queue positions,
@@ -43,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import current_rules, shard
 from .common import Params, _trunc_normal, dense_init
 
 GROUP_TOKENS = 512   # dispatch/combine one-hots are O(T_g^2): keep T_g small
@@ -64,11 +67,21 @@ def _local_expert_bias(num_groups: int, num_experts: int, bias: float,
                        device: torch.device | str | None = None) -> torch.Tensor:
     """(G, E) bias favoring experts co-resident with each token group.
 
-    In the reference, group g's tokens live on expert-axis coordinate
-    (g % A) and expert e on coordinate (e // (E/A)), and ``bias`` goes to
-    the pairs that match.  The port has no mesh yet (ROADMAP E3): A is 1,
-    and the reference returns zeros for A = 1, as this does."""
-    return torch.zeros((num_groups, num_experts), dtype=torch.float32, device=device)
+    Group g's tokens live on expert-axis coordinate (g % A) when groups are
+    laid out batch-major over a (data, model)-flattened device order;
+    expert e lives on coordinate (e // (E/A)).  The bias is the paper's
+    "local queue first" preference in logit space.  Zeros when A is 1 or
+    does not divide E."""
+    rules = current_rules()
+    a = 1
+    if rules is not None and rules.rules.get("experts") is not None:
+        a = rules.axis_size(rules.rules["experts"])
+    if a <= 1 or num_experts % a:
+        return torch.zeros((num_groups, num_experts), dtype=torch.float32, device=device)
+    per = num_experts // a
+    g_coord = torch.arange(num_groups, device=device) % a
+    e_coord = torch.arange(num_experts, device=device) // per
+    return torch.where(g_coord[:, None] == e_coord[None, :], bias, 0.0).float()
 
 
 def num_groups_for(b: int, t: int) -> int:
@@ -145,6 +158,7 @@ def dispatch(xg: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
     combine = torch.einsum("gtke,gtkc->gtec", onehot.to(xg.dtype) * weight[..., None],
                            slot)                                         # (G,T,E,C)
     expert_in = torch.einsum("gtec,gtd->gecd", (combine > 0).to(xg.dtype), xg)
+    expert_in = shard(expert_in, "batch", "experts", None, None)
     plan["combine"] = combine
     plan["x"] = expert_in.permute(1, 0, 2, 3).reshape(e, g * cap, d)
     return plan
@@ -173,6 +187,7 @@ def combine(plan: dict, y: torch.Tensor) -> torch.Tensor:
     comb = plan["combine"]
     e, cap = comb.shape[2], comb.shape[3]
     expert_out = y.reshape(e, g, cap, -1).permute(1, 0, 2, 3)
+    expert_out = shard(expert_out, "batch", "experts", None, None)
     return torch.einsum("gtec,gecd->gtd", comb, expert_out)
 
 

@@ -20,7 +20,10 @@ recurrence, so the port sends every one, at any T, through
 f32 and, as in the reference, the cached state ``h`` is rounded to the
 model's dtype after every prefill and decode step.  ``softplus`` is the
 reference's ``jax.nn.softplus``, ``logaddexp(x, 0)``, written out, not
-``F.softplus`` (whose linear branch above 20 rounds differently).
+``F.softplus`` (whose linear branch above 20 rounds differently).  On
+DTensors (under mesh rules) the scan runs on each rank's local shards,
+batch over the data axis and the lru channels over the model axis (K5
+reads raw device pointers; the scan is channel-wise).
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import is_dtensor, on_local_shards
 from ..kernels.rglru.ops import rglru_scan
-from .common import Params, _trunc_normal, dense_init, matmul_lowp
+from .common import Params, _trunc_normal, dense_init, draw_device, matmul_lowp
 
 _C = 8.0
 _CONV_W = 4
@@ -53,7 +57,7 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig,
     w = d  # lru width = d_model
     nb = _gate_blocks(w)
     bw = w // nb
-    dev = gen.device
+    dev = draw_device(gen)
     scale = 1.0 / math.sqrt(bw)
     zeros = torch.zeros((w,), dtype=dtype, device=dev)
     # Λ init so that a = exp(-c*softplus(Λ)) spans ~(0.9, 0.999)
@@ -93,6 +97,10 @@ def _rglru_scan(a: torch.Tensor, bx: torch.Tensor,
 
     The reference folds ``a_0 * h0`` into ``bx_0`` and scans from zero;
     the plain loop and K5 add the same two rounded terms at step 0."""
+    if is_dtensor(a):
+        return on_local_shards(lambda a_, b_, h_: rglru_scan(a_, b_, use_kernel, h0=h_),
+                               [(a, ("batch", None, "lru")), (bx, ("batch", None, "lru")),
+                                (h0, ("batch", "lru"))], ("batch", None, "lru"))
     return rglru_scan(a, bx, use_kernel, h0=h0)
 
 

@@ -17,7 +17,9 @@ the same recurrence, so the port sends both, at any T, through
 loop over T) otherwise.  As in the reference, r, k and v are rounded to
 bf16 before the recurrence even in an f32 model, and w, u and the state
 stay f32.  With a cache the final state is written into ``cache["s"]`` in
-place (ROADMAP P8).
+place (ROADMAP P8).  On DTensors (under mesh rules) the recurrence runs on
+each rank's local shards, batch over the data axis (K4 reads raw device
+pointers); the state then comes back as the result, a new DTensor.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import is_dtensor, on_local_shards
 from ..kernels.rwkv6.ops import wkv6
-from .common import Params, dense_init
+from .common import Params, dense_init, draw_device
 
 
 def _heads(cfg: ModelConfig) -> int:
@@ -38,7 +41,7 @@ def _heads(cfg: ModelConfig) -> int:
 def _uniform(gen: torch.Generator, shape: tuple[int, ...], scale: float,
              dtype: torch.dtype) -> torch.Tensor:
     """U[0, 1) times ``scale``, drawn in f32 and then cast (as the reference)."""
-    return (torch.rand(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    return (torch.rand(shape, generator=gen, device=draw_device(gen)) * scale).to(dtype)
 
 
 def rwkv_init(gen: torch.Generator, cfg: ModelConfig,
@@ -47,7 +50,7 @@ def rwkv_init(gen: torch.Generator, cfg: ModelConfig,
     hd = cfg.rwkv_head_dim
     h = _heads(cfg)
     lora = 64
-    dev = gen.device
+    dev = draw_device(gen)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -108,7 +111,15 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     w = torch.exp(-torch.exp(decay)).reshape(b, t, h, hd)
 
     s0 = cache["s"] if cache is not None else None
-    o, st = wkv6(r, k, v, w, p["u"].float(), use_kernel, s0=s0)
+    u = p["u"].float()
+    if is_dtensor(r):
+        bhd = ("batch", None, None, None)
+        o, st = on_local_shards(
+            lambda r_, k_, v_, w_, u_, s_: wkv6(r_, k_, v_, w_, u_, use_kernel, s0=s_),
+            [(r, bhd), (k, bhd), (v, bhd), (w, bhd), (u, (None, None)), (s0, bhd)],
+            [bhd, bhd])
+    else:
+        o, st = wkv6(r, k, v, w, u, use_kernel, s0=s0)
 
     # group norm over each head (population variance, as jnp.var)
     og = o.reshape(b, t, h, hd)

@@ -17,6 +17,11 @@ gated MLP) and "rwkv".  An attention layer's attention is MLA
 mixture of experts (``models/moe.py``) when it has ``moe``; the MoE block's
 auxiliary load-balance loss is what ``apply_block`` returns beside the
 output and cache.
+
+Under mesh rules each block's input carries the reference's ``shard``
+constraint (batch over the data axes).  ``_gather_fsdp`` is the
+reference's per-layer FSDP weight gather; as there, no block calls it
+(the reference removed the call and kept the function).
 """
 from __future__ import annotations
 
@@ -25,10 +30,12 @@ from typing import Any, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .._tree import leaves
+from .._tree import flatten_with_path, leaves, unflatten
 from ..configs.base import ModelConfig
+from ..distributed.sharding import current_rules, shard, use_rules
 from .attention import attention_block, attn_init
-from .common import Params, layer_norm, layer_norm_init, rms_norm, rms_norm_init
+from .common import (Params, draw_device, layer_norm, layer_norm_init, rms_norm,
+                     rms_norm_init)
 from .mla import mla_block, mla_init
 from .mlp import mlp, mlp_init
 from .moe import moe_block, moe_init
@@ -56,31 +63,31 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     d = cfg.d_model
     if kind == "rwkv":
         # channel-mix params live inside the tmix dict (shared init fn)
-        return {"ln1": _norm_init(cfg, d, dtype, gen.device),
+        return {"ln1": _norm_init(cfg, d, dtype, draw_device(gen)),
                 "tmix": rwkv_init(gen, cfg, dtype),
-                "ln2": _norm_init(cfg, d, dtype, gen.device)}
+                "ln2": _norm_init(cfg, d, dtype, draw_device(gen))}
     if kind == "rglru":
-        return {"ln1": _norm_init(cfg, d, dtype, gen.device),
+        return {"ln1": _norm_init(cfg, d, dtype, draw_device(gen)),
                 "rec": rglru_init(gen, cfg, dtype),
-                "ln2": _norm_init(cfg, d, dtype, gen.device),
+                "ln2": _norm_init(cfg, d, dtype, draw_device(gen)),
                 "mlp": mlp_init(gen, d, cfg.d_ff, gated=True, dtype=dtype)}
     if kind not in KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
-    p: Params = {"ln1": _norm_init(cfg, d, dtype, gen.device),
+    p: Params = {"ln1": _norm_init(cfg, d, dtype, draw_device(gen)),
                  "attn": mla_init(gen, cfg, dtype) if cfg.mla is not None
                  else attn_init(gen, cfg, dtype=dtype),
-                 "ln2": _norm_init(cfg, d, dtype, gen.device)}
+                 "ln2": _norm_init(cfg, d, dtype, draw_device(gen))}
     if cfg.moe is not None:
         p["moe"] = moe_init(gen, cfg, dtype)
     else:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, gated=cfg.act in ("silu", "gelu"),
                             dtype=dtype)
     if kind == "cross":
-        p["ln_x"] = _norm_init(cfg, d, dtype, gen.device)
+        p["ln_x"] = _norm_init(cfg, d, dtype, draw_device(gen))
         p["xattn"] = attn_init(gen, cfg, dtype=dtype)
         if cfg.family == "vlm":        # llama-vision gates cross layers
-            p["gate_x"] = torch.zeros((), dtype=dtype, device=gen.device)
-            p["gate_m"] = torch.zeros((), dtype=dtype, device=gen.device)
+            p["gate_x"] = torch.zeros((), dtype=dtype, device=draw_device(gen))
+            p["gate_m"] = torch.zeros((), dtype=dtype, device=draw_device(gen))
     return p
 
 
@@ -115,6 +122,22 @@ def block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
     return spec
 
 
+def _gather_fsdp(params: Params) -> Params:
+    """Re-constrain FSDP-sharded weights to their TP-only sharding at the
+    point of use: one small per-layer weight all-gather (ZeRO-3) instead of
+    activation partials.  Unchanged without rules or without an FSDP axis."""
+    rules = current_rules()
+    if rules is None or rules.rules.get("fsdp") is None:
+        return params
+    from .model import _leaf_axes
+
+    out = []
+    for path, leaf in flatten_with_path(params):
+        axes = tuple(None if a == "fsdp" else a for a in _leaf_axes(path, leaf))
+        out.append(shard(leaf, *axes))
+    return unflatten(params, out)
+
+
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 pos_offset: int, cache: Optional[Params] = None,
                 cross_x: Optional[torch.Tensor] = None, causal: bool = True,
@@ -123,6 +146,7 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 
     ``aux_loss`` is the MoE router's load-balance loss (a 0-d f32 tensor);
     every other block returns 0.0."""
+    x = shard(x, "batch", None, None)
     if kind == "rwkv":
         h, c1 = rwkv_time_mix(p["tmix"], _norm(cfg, p["ln1"], x), cfg,
                               cache=None if cache is None else
@@ -206,18 +230,27 @@ def apply_stack(params: list[Params], x: torch.Tensor, cfg: ModelConfig, *,
     ``x`` or a parameter requiring grad: training), each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
     are recomputed in the backward pass instead of kept, the reference's
-    ``jax.checkpoint`` of its scanned layers.  Memory changes, numbers do
-    not."""
+    ``jax.checkpoint`` of its scanned layers, under the sharding rules
+    that the forward ran under.  Memory changes, numbers do not."""
     new_caches = None if caches is None else []
     aux_total = 0.0
     remat = cfg.remat and caches is None and torch.is_grad_enabled() and (
         x.requires_grad or any(t.requires_grad for t in leaves(params)))
+    block = apply_block
+    rules = current_rules()
+    if remat and rules is not None:
+        # the recomputation runs in the backward pass, which autograd runs
+        # on a device thread of its own for CUDA tensors: the rules (thread
+        # local) go with it
+        def block(*args, **kw):
+            with use_rules(rules):
+                return apply_block(*args, **kw)
     for i, kind in enumerate(cfg.layer_kinds()):
         c = None if caches is None else caches[i]
         kw = dict(pos_offset=pos_offset, cache=c, cross_x=cross_x, causal=causal,
                   use_kernel=use_kernel)
         if remat:
-            x, nc, aux = checkpoint(apply_block, params[i], x, cfg, kind,
+            x, nc, aux = checkpoint(block, params[i], x, cfg, kind,
                                     use_reentrant=False, **kw)
         else:
             x, nc, aux = apply_block(params[i], x, cfg, kind, **kw)

@@ -7,10 +7,17 @@ operation for operation and in its order (``adamw_update``), as plain
 per-leaf tensor code: an optimizer step reads and writes each state byte
 once, so it is bound by memory and needs no kernel of its own.  Like the
 reference it is functional: it returns new tensors and changes none it
-was given.
+was given.  The leaves may be DTensors (a sharded train step, under
+``distributed.sharding.use_rules``): every operation here then runs
+sharded, with the state's placements.
 
-``opt_state_shardings`` (the reference's ZeRO-1 layout over a mesh) waits
-for a mesh in the port (ROADMAP E3).
+``opt_state_shardings`` is the reference's ZeRO-1 layout: the state's
+placements are the parameters', plus the "zero" logical axis (the data
+mesh dim) on the first still-unsharded dimension it divides.  The port's
+stack is a list of per-layer leaves, so that dimension is a layer leaf's
+own; the reference's stacked leaves put it on the layer-stack axis when it
+divides (its ``param_tree`` decides, and the same tree gives the same
+specs in both packages).
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from typing import Any
 
 import torch
 
-from .._tree import leaves, tree_map, unflatten
+from .._tree import flatten_with_path, leaves, tree_map, unflatten
 
 Params = Any
 
@@ -52,10 +59,8 @@ def init_opt_state(params: Params) -> dict:
     device = leaves(params)[0].device
     return {
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -102,3 +107,30 @@ def adamw_update(c: AdamWConfig, grads: Params, opt_state: dict,
         new_params = tree_map(lambda w: w.to(param_dtype), new_master)
     new_state = {"master": new_master, "m": new_m, "v": new_v, "step": step}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_shardings(param_shardings_tree, rules, param_tree):
+    """Placements for the opt state: like params, plus the "zero" axis on
+    the first still-unsharded, divisible dimension (ZeRO-1)."""
+    from ..distributed.sharding import _names, placements, spec_of
+    from ..models.model import _placement_leaves
+
+    zero_axis = rules.rules.get("zero")
+    data_size = rules.axis_size(zero_axis) if zero_axis is not None else 1
+
+    def zero_shard(pl, leaf):
+        spec = list(spec_of(rules.mesh, pl, len(leaf.shape)))
+        used = {a for s in spec for a in _names(s)}
+        if zero_axis is not None and zero_axis not in used:
+            for i, s in enumerate(spec):
+                if s is None and leaf.shape[i] % data_size == 0 and data_size > 1:
+                    spec[i] = zero_axis
+                    break
+        return placements(rules.mesh, spec)
+
+    like_params = unflatten(param_tree, [
+        zero_shard(pl, leaf) for pl, (_, leaf) in
+        zip(_placement_leaves(param_tree, param_shardings_tree),
+            flatten_with_path(param_tree))])
+    return {"master": like_params, "m": like_params, "v": like_params,
+            "step": placements(rules.mesh, ())}

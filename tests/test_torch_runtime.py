@@ -229,10 +229,14 @@ class TestExecutorParity:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The port and its chip script stand alone: no ``jax``, no ``repro``."""
+    """The port, its chip script, its example twins and its rank helper
+    script stand alone: no ``jax``, no ``repro``."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(twins) == 10
+    files += twins + [ROOT / "tests" / "torch_dist_ranks.py"]
     assert len(files) > 10
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if bad.search(p.read_text())]
