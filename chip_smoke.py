@@ -249,8 +249,28 @@ failure:
    ``compressed_psum`` in its three modes (against numpy, bit for bit),
    ``lse_combine``, ``pipelined_apply`` at one stage and
    ``ring_halo_exchange`` (zeros at both ends);
-9. print the ``serving``, ``training``, ``distribution`` and ``kernels``
-   JSON lines, the card's name and power limit, and last the
+9. the dry run and the roofline counter (``dryrun_phase``, at most about
+   60 s; its time and cuts printed): 9a runs ``python -m
+   repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k,decode_32k
+   --mesh single`` in a process of its own (a mesh of device type ``cuda``
+   over PyTorch's fake process group of 256 ranks, so the NCCL rank of
+   phases 3c and 8 is not disturbed; 2 of the 40 single-pod cells): both
+   cells ``ok``, their roofline rows printed; 9b holds the counter
+   (``roofline.op_cost``) to the card on full-width qwen2-0.5b bf16 at
+   phase 7d's 8 x 1024 with remat, one rank, no mesh: the counted per-card
+   peak of the plain step (``use_kernel=False``, counted on ``meta``
+   tensors) against ``torch.cuda.max_memory_allocated`` of the same plain
+   step on the card (the bytes allocated before it that are not its
+   arguments taken out), ratio within 0.98-1.02; the kernel step (K3
+   forward and backward, 7d's path) counted as it runs on the card, K3's
+   launches reported by its wrapper with their own reads and writes
+   (``op_cost.kernel_launch``), its FLOPs within 0.85-1.0 of the plain
+   step's; each step's ms beside its own counted ``t_bound`` on the H100's
+   datasheet constants (the plain step's bytes are eager ones at every
+   op, the score-sized intermediates included), both shares and
+   ``useful_flops_ratio`` printed, no gate on the shares;
+10. print the ``serving``, ``training``, ``distribution``, ``roofline`` and
+   ``kernels`` JSON lines, the card's name and power limit, and last the
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, with no result line, when there is no CUDA device or when
@@ -2456,6 +2476,190 @@ def _one_rank_collectives(dev, collectives, pipeline) -> dict:
 T_START = time.perf_counter()
 
 
+# phase 9: the dry run's cells on the card's host (2 of the 40 single-pod
+# cells), 9b's memory gate (counted peak of the plain step against the
+# card's: 1.0000-1.0001 in two runs, the margin the allocator's rounding
+# and workspaces), the kernel step's counted FLOPs against the plain
+# step's (K3 counts the visible pairs only; far below, the count missed
+# ops), and the subprocess's time limit
+DRYRUN_CELLS = ("qwen2-0.5b", "train_4k,decode_32k")
+MEMORY_RATIO = (0.98, 1.02)
+KERNEL_FLOPS_RATIO = (0.85, 1.0)
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_phase(dev, card) -> dict:
+    """Phase 9: the dry run over the fake process group (9a) and the op
+    counter held to the card (9b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline.analysis import analyze, model_flops_train
+    from repro_torch.roofline.op_cost import OpCounter, measure
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # -- 9a. the dry run's cells, in a process of its own --------------------
+    stamp("9a")
+    arch, shapes = DRYRUN_CELLS
+    print(f"9a: cut to {arch} x {shapes}, single pod (2 of 40 cells); the mesh's "
+          f"device type cuda over a fake process group of 256 ranks")
+    with tempfile.TemporaryDirectory() as tmp:
+        table = pathlib.Path(tmp) / "torch_dryrun.json"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shapes, "--mesh", "single", "--out", str(table), "--force"],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"9a: the dry run ran past {DRYRUN_TIMEOUT_S} s")
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[done]", "total:")):
+                print(f"9a: {line}")
+        if proc.returncode != 0:
+            fail(f"9a: the dry run exited {proc.returncode}: {proc.stderr[-2000:]}")
+        cells = json.loads(table.read_text())
+    for key, cell in sorted(cells.items()):
+        if cell.get("status") == "error":
+            print(f"9a: {key}: {cell['trace']}")
+    want = {f"{arch}|{s}|single" for s in shapes.split(",")}
+    if set(cells) != want or any(c.get("status") != "ok" for c in cells.values()):
+        fail(f"9a: cells {sorted(cells)}, statuses "
+             f"{[c.get('status') for c in cells.values()]}; want {sorted(want)} ok")
+    rows = {}
+    for key, cell in sorted(cells.items()):
+        r = cell["roofline"]
+        rows[key] = {"t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+                     "t_collective_s": r["t_collective_s"], "bottleneck": r["bottleneck"],
+                     "peak_gib_per_card": cell["memory"]["peak_estimate_per_chip"] / 2 ** 30,
+                     "useful_flops_ratio": cell["useful_flops_ratio"],
+                     "lower_s": cell["lower_s"], "compile_s": cell["compile_s"]}
+        print(f"9a: {key}: t_compute {r['t_compute_s']:.4e} s, t_memory "
+              f"{r['t_memory_s']:.4e} s, t_collective {r['t_collective_s']:.4e} s, "
+              f"bottleneck {r['bottleneck']}, peak {rows[key]['peak_gib_per_card']:.2f} GiB "
+              f"a card, useful FLOPs ratio {cell['useful_flops_ratio']:.4f} (datasheet "
+              f"constants, not readings)")
+    out["dryrun"] = {"seconds": secs, "cells": rows}
+    print(f"9a: {secs:.1f} s for the dry run's process")
+
+    # -- 9b. the counter against the card ------------------------------------
+    stamp("9b")
+    cfg = get_config(arch)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"9b: {arch} {cfg.dtype}, full width, remat {cfg.remat}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} (phase 7d's shape), one rank, no mesh")
+    it = make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {name: torch.as_tensor(x, device=dev) for name, x in next(it).items()}
+
+    meta_model = build_model(cfg, max_pos=TRAIN_SEQ, device="cpu", use_kernel=False)
+    p_abs = meta_model.abstract_params()
+    b_abs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    t0 = time.perf_counter()
+    _, counter = measure(make_train_step(meta_model), p_abs, init_opt_state(p_abs), b_abs)
+    count_s = time.perf_counter() - t0
+    roof = analyze(counter.cost)
+    useful = model_flops_train(cfg.active_params(), tokens) / roof.flops
+    print(f"9b: plain step counted in {count_s:.1f} s: {roof.flops:.6e} FLOPs, "
+          f"{roof.hbm_bytes:.6e} bytes (eager, at every op), t_bound "
+          f"{roof.t_bound * 1e3:.3f} ms ({roof.bottleneck}), peak {counter.peak / 1e9:.3f} "
+          f"GB, useful FLOPs ratio {useful:.4f}")
+
+    pmodel = build_model(cfg, max_pos=TRAIN_SEQ, use_kernel=False)
+    params = pmodel.init_params(torch.Generator(device=dev).manual_seed(0))
+    opt = init_opt_state(params)
+    pstep = make_train_step(pmodel)
+    warm = pstep(params, opt, batch)          # cuBLAS workspace, the allocator's pools
+    torch.cuda.synchronize()
+    del warm
+    gc.collect()
+    arg_bytes = OpCounter().track((params, opt, batch))
+    other = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    res = pstep(params, opt, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - other
+    del res
+    gc.collect()
+    ratio = card_peak / counter.peak
+    print(f"9b: peak of the plain step: card {card_peak / 1e9:.3f} GB "
+          f"(max_memory_allocated less {other / 1e9:.3f} GB allocated before it that "
+          f"are not its arguments), counted {counter.peak / 1e9:.3f} GB, ratio "
+          f"{ratio:.4f} (limits {MEMORY_RATIO})")
+    if not MEMORY_RATIO[0] <= ratio <= MEMORY_RATIO[1]:
+        fail(f"9b: the card's peak is {ratio:.4f} of the counted peak")
+
+    def step_ms(step, n=3):
+        r = step(params, opt, batch)          # warm
+        torch.cuda.synchronize()
+        del r
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = step(params, opt, batch)
+            del r
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    plain_ms = step_ms(pstep)
+    kstep = make_train_step(build_model(cfg, max_pos=TRAIN_SEQ))
+    # the kernel step counted as it runs on the card: its aten ops, and K3's
+    # launches with their own reads and writes (op_cost.kernel_launch), in
+    # place of the plain attention's score-sized intermediates
+    t0 = time.perf_counter()
+    res, kcounter = measure(kstep, params, opt, batch, record=True)
+    torch.cuda.synchronize()
+    kcount_s = time.perf_counter() - t0
+    del res
+    kroof = analyze(kcounter.cost)
+    reported = (sum(r.op == "kernel.K3" for r in kcounter.records),
+                sum(r.op == "kernel.K3 backward" for r in kcounter.records))
+    want = (2 * cfg.num_layers, cfg.num_layers)
+    if reported != want:
+        fail(f"9b: the counted kernel step saw K3 {reported} times, want {want}")
+    flops_ratio = kroof.flops / roof.flops
+    print(f"9b: kernel step counted on the card in {kcount_s:.1f} s: {kroof.flops:.6e} "
+          f"FLOPs ({flops_ratio:.4f} of the plain step's; limits {KERNEL_FLOPS_RATIO}), "
+          f"{kroof.hbm_bytes:.6e} bytes, t_bound {kroof.t_bound * 1e3:.3f} ms "
+          f"({kroof.bottleneck}; compute {kroof.t_compute * 1e3:.3f} ms), K3 {reported[0]} "
+          f"forward, {reported[1]} backward")
+    if not KERNEL_FLOPS_RATIO[0] <= flops_ratio <= KERNEL_FLOPS_RATIO[1]:
+        fail(f"9b: the kernel step's count is {flops_ratio:.4f} of the plain step's FLOPs")
+    k3.flash_attention.launches = k3.flash_attention_backward.launches = 0
+    kernel_ms = step_ms(kstep)
+    launched = (k3.flash_attention.launches // 4, k3.flash_attention_backward.launches // 4)
+    if launched != want:
+        fail(f"9b: the kernel step launched K3 {launched} times a step, want {want}")
+    bound_ms, kbound_ms = roof.t_bound * 1e3, kroof.t_bound * 1e3
+    print(f"9b: plain step {plain_ms:.2f} ms against its own bound {bound_ms:.3f} ms "
+          f"(eager bytes at every op): share {bound_ms / plain_ms:.4f}; kernel step "
+          f"{kernel_ms:.2f} ms (K3 {launched[0]} forward, {launched[1]} backward a step) "
+          f"against its own bound {kbound_ms:.3f} ms: share {kbound_ms / kernel_ms:.4f}")
+    out["counter"] = {
+        "shape": [TRAIN_BATCH, TRAIN_SEQ], "flops": roof.flops, "bytes": roof.hbm_bytes,
+        "t_bound_ms": bound_ms, "bottleneck": roof.bottleneck, "useful_flops_ratio": useful,
+        "counted_peak_bytes": counter.peak, "card_peak_bytes": card_peak,
+        "peak_ratio": ratio, "count_s": count_s, "plain_ms": plain_ms,
+        "kernel_ms": kernel_ms, "k3_launches_a_step": launched,
+        "kernel_step_flops": kroof.flops, "kernel_step_bytes": kroof.hbm_bytes,
+        "kernel_step_t_bound_ms": kbound_ms, "kernel_step_bottleneck": kroof.bottleneck,
+        "kernel_count_s": kcount_s,
+        "share_plain_own_bound": bound_ms / plain_ms,
+        "share_kernel_own_bound": kbound_ms / kernel_ms}
+    del params, opt, pmodel, kstep
+    free_device_memory()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def stamp(phase) -> None:
     print(f"[{time.perf_counter() - T_START:.1f} s] phase {phase}", flush=True)
 
@@ -3576,8 +3780,12 @@ def main() -> None:
     stamp(8)
     distribution = distribution_phase(dev, card, counts, zero_counts)
 
-    # -- 9. result lines --------------------------------------------------
+    # -- 9. the dry run and the roofline counter ---------------------------
     stamp(9)
+    roofline = dryrun_phase(dev, card)
+
+    # -- 10. result lines -------------------------------------------------
+    stamp(10)
     kernels = []
     for name, replaces, path, path_launches in (
             ("jacobi_sweep", "src/repro/kernels/jacobi/kernel.py:32",
@@ -3647,6 +3855,7 @@ def main() -> None:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"distribution": distribution}))
+    print(json.dumps({"roofline": roofline}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,10 @@ P and dS as bf16 hi + lo pairs); in f32, the SIMT kernels (the log-sum-exp
 and D recomputed, then dQ, then dK and dV).  No atomics, so the same bits
 on every call.  The model enters the Function only when grad mode is on
 and an input requires grad, so serving launches K3 exactly as before.
+
+Each launch on the card is reported to ``roofline.op_cost``'s active
+counters (:func:`_report`): its operands read once, its results written
+once, and the products' flops of the pairs the mask lets through.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import math
 
 import torch
 
+from ...roofline import op_cost
 from .. import _build
 from .ref import mha_ref
 
@@ -69,6 +74,27 @@ def key_range(t0: int, t1: int, tk: int, *, causal: bool, window: int,
         return 0, tk
     k_begin = max(0, q_offset + t0 - window + 1) if window > 0 else 0
     return k_begin, min(tk, q_offset + t1)
+
+
+def visible_pairs(tq: int, tk: int, *, causal: bool, window: int, q_offset: int) -> int:
+    """The (query, key) pairs the mask lets through, per query head."""
+    if not causal:
+        return tq * tk
+    t = torch.arange(tq, dtype=torch.int64) + q_offset
+    hi = (t + 1).clamp(0, tk)
+    lo = (t - window + 1).clamp(0, tk) if window > 0 else torch.zeros_like(t)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def _report(name: str, reads, writes, q, k, *, causal, window, q_offset, per_pair):
+    """One launch to ``roofline.op_cost``'s active counters: ``per_pair``
+    flops for each visible (query head, query, key) triple (4 hd forward:
+    two products; 10 hd backward: five)."""
+    if op_cost._ACTIVE:
+        b, hq, tq, hd = q.shape
+        pairs = visible_pairs(tq, k.shape[2], causal=causal, window=window,
+                              q_offset=q_offset)
+        op_cost.kernel_launch(name, reads, writes, per_pair * hd * b * hq * pairs)
 
 
 def _tiles(k_begin: int, k_end: int, bk: int) -> int:
@@ -242,6 +268,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(lib, err, "flash_attention_f32_kernel launch")
     flash_attention.launches += 1
+    _report("K3", (q, k, v), (out,), q, k, causal=causal, window=window,
+            q_offset=q_offset, per_pair=4)
     return out
 
 
@@ -380,7 +408,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bf16:
         if stats is None:
             stats = forward_with_stats(q, k, v, causal=causal, window=window,
-                                       q_offset=q_offset)[1:]
+                                       q_offset=q_offset)
+            _report("K3", (q, k, v), stats, q, k, causal=causal, window=window,
+                    q_offset=q_offset, per_pair=4)
+            stats = stats[1:]
         lse, o32 = stats
     else:
         lse, o32 = torch.empty_like(delta), None
@@ -397,6 +428,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hd ** -0.5, int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attention backward launch")
     flash_attention_backward.launches += 1
+    _report("K3 backward", (q, k, v, dout, lse, o32), (dq, dk, dv, delta), q, k,
+            causal=causal, window=window, q_offset=q_offset, per_pair=10)
     return dq, dk, dv
 
 
@@ -415,6 +448,8 @@ class FlashAttentionFn(torch.autograd.Function):
             out, lse, o32 = forward_with_stats(q, k, v, causal=causal, window=window,
                                                q_offset=q_offset)
             flash_attention.launches += 1
+            _report("K3", (q, k, v), (out, lse, o32), q, k, causal=causal,
+                    window=window, q_offset=q_offset, per_pair=4)
             ctx.save_for_backward(q, k, v, lse, o32)
         else:
             out = flash_attention(q, k, v, causal=causal, window=window,

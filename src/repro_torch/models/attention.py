@@ -60,7 +60,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import current_rules, is_dtensor, on_local_shards, shard
+from ..distributed.sharding import (as_dtensor, current_rules, is_dtensor, on_local_shards,
+                                    shard)
 from ..kernels.flash_attention.kernel import FlashAttentionFn, flash_attention
 from .common import Params, apply_rope, dense_init, draw_device, matmul_lowp
 
@@ -285,6 +286,19 @@ def seq_parallel_attention(q, k, v, *, pos_offset: int, window: int, rules,
                            ("batch", "seq_q", None), rules)
 
 
+def seq_shard_projection(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out @ w`` for ``seq_parallel_attention``'s sequence-sharded result:
+    the product on each rank's sequence shard (the rules that shard the
+    query sequence replicate ``w``'s rows), then the shards gathered, so
+    the residual stream stays sharded on the batch only.  PyTorch 2.11's
+    DTensor cannot fold a sequence-sharded (B, T) into the rows of one
+    product."""
+    h = on_local_shards(lambda o, w_: o @ w_, [(out, ("batch", "seq_q", None)),
+                                               (w, (None, None))],
+                        ("batch", "seq_q", None))
+    return shard(h, "batch", None, None)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, ring: bool = False,
                      window: int = 0) -> torch.Tensor:
     """One-token decode: q (B,1,H,hd) vs cache (B,S,KV,hd).
@@ -366,9 +380,37 @@ def _ring_write(buf: torch.Tensor, x: torch.Tensor, pos_offset: int) -> None:
     tq, s = x.shape[1], buf.shape[1]
     take = min(tq, s)
     p0 = pos_offset + tq - take
+    if is_dtensor(buf):
+        _ring_write_local(buf, x, p0, take)
+        return
     slots = torch.arange(p0, p0 + take, device=buf.device) % s
     buf.zero_()
     buf[:, slots] = x[:, tq - take:].to(buf.dtype)
+
+
+def _ring_write_local(buf, x, p0: int, take: int) -> None:
+    """``_ring_write`` into a DTensor ring, on each rank's local shard:
+    DTensor has no rule for an in-place ``index_put_`` into a ring sharded
+    over its slots (``kv_seq``), so each rank writes the slots its shard
+    holds from the positions replicated along the sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, s, tq = buf.device_mesh, buf.shape[1], x.shape[1]
+    local_shape, offset = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    lo, n = offset[1], local_shape[1]
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in buf.placements]
+    xl = as_dtensor(x, mesh).redistribute(mesh, want).to_local()
+    pairs = [(p % s - lo, tq - take + i) for i, p in enumerate(range(p0, p0 + take))
+             if lo <= p % s < lo + n]
+    local = buf.to_local()
+    local.zero_()
+    if pairs:
+        slots = torch.tensor([a for a, _ in pairs], device=local.device)
+        rows = torch.tensor([b for _, b in pairs], device=local.device)
+        local[:, slots] = xl[:, rows].to(local.dtype)
 
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -461,6 +503,10 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             out = _kernel_attention(q, k_cache, v_cache, causal=True,
                                     q_offset=pos_offset)
         else:
+            # one query a sequence: its heads replicated (a small gather),
+            # so that DTensor splits them into (KV, G) groups on whole
+            # heads, against the cache's slot shards
+            q = shard(q, "batch", None, None, None)
             out = decode_attention(q, k_cache, v_cache, pos_offset + 1,
                                    ring=ring, window=window)
         return out @ p["wo"], {"k": k_cache, "v": v_cache}
@@ -469,7 +515,7 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = shard(q, "batch", "seq_q", "heads", None)
     k = shard(k, "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
-    out = None
+    out = h = None
     if causal and tq > DIRECT_MAX_T:
         # the long causal prefill tries sequence parallelism first (None
         # without mesh rules that shard the query sequence)
@@ -488,8 +534,12 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             return banded_attention(q, k, v, pos_offset, window)
         return chunked_attention(q, k, v, pos_offset, window)
 
-    if out is None:
-        out = _on_head_shards(attend, q, k, v) if is_dtensor(q) else attend(q, k, v)
+    if out is not None:
+        h = seq_shard_projection(out, p["wo"])
+    elif is_dtensor(q):
+        out = _on_head_shards(attend, q, k, v)
+    else:
+        out = attend(q, k, v)
 
     new_cache = None
     if cache is not None:
@@ -501,4 +551,4 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             else:
                 cache[name][:, pos_offset:pos_offset + tq] = val.to(cache[name].dtype)
         new_cache = {"k": cache["k"], "v": cache["v"]}
-    return matmul_lowp(out, p["wo"]), new_cache
+    return (h if h is not None else matmul_lowp(out, p["wo"])), new_cache

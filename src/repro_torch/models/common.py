@@ -168,6 +168,24 @@ def act_fn(name: str):
     }[name]
 
 
+def _vocab_iota(logits: torch.Tensor) -> torch.Tensor:
+    """0..V-1 along the vocab axis.  For DTensor logits it is a DTensor
+    sharded as the vocab axis is: a plain ``arange`` would be a replicated
+    value, and the gold pick would gather every rank's logits whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    v = logits.shape[-1]
+    if not isinstance(logits, DTensor):
+        return torch.arange(v, device=logits.device)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+          for p in logits.placements]
+    (n,), (lo,) = compute_local_shape_and_global_offset((v,), mesh, pl)
+    return DTensor.from_local(torch.arange(lo, lo + n, device=logits.device), mesh, pl,
+                              run_check=False, shape=(v,), stride=(1,))
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross-entropy; logits (..., V) in any float dtype.
@@ -179,7 +197,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
     z = torch.sum(torch.exp(shifted), dim=-1)
-    vocab_iota = torch.arange(logits.shape[-1], device=logits.device)
+    vocab_iota = _vocab_iota(logits)
     gold_shifted = torch.sum(
         torch.where(vocab_iota == labels[..., None], shifted, 0.0), dim=-1)
     nll = torch.log(z) - gold_shifted

@@ -177,6 +177,9 @@ def mla_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             q_rope_s = shard(q_rope, "batch", "seq_q", None, None)
             o_lat = _absorbed_chunked(q_lat, q_rope_s, ckv, kr, pos_offset, scale)
         o = torch.einsum("bthr,rhv->bthv", o_lat, w_uv)
+        # DTensor may split the heads over the model dim here, unevenly
+        # (minicpm3-4b: 40 over 16), and cannot flatten such a dim
+        o = shard(o, "batch", None, "heads", None)
         return o.reshape(b, t, h * m.v_head_dim) @ p["wo"], new_cache
 
     # expanded form for short sequences

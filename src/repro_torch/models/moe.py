@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import current_rules, shard
+from ..distributed.sharding import current_rules, is_dtensor, on_local_shards, shard
 from .common import Params, _trunc_normal, dense_init
 
 GROUP_TOKENS = 512   # dispatch/combine one-hots are O(T_g^2): keep T_g small
@@ -98,6 +98,13 @@ def group(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     if per * num_groups != b * t:
         raise TypeError(f"cannot reshape array of shape {(b, t, d)} into shape "
                         f"{(num_groups, per, d)}")
+    if is_dtensor(x):
+        # on each rank's rows (a rank's groups are its rows'): in the
+        # backward DTensor reshapes the groups' gradient back to (B, T, D)
+        # and mis-sizes a rank's rows when that gradient is split over more
+        # mesh dims than the batch
+        return on_local_shards(lambda xl: xl.reshape(num_groups * xl.shape[0] // b, per, d),
+                               [(x, ("batch", None, None))], ("batch", None, None))
     return x.reshape(num_groups, per, d)
 
 
@@ -157,10 +164,13 @@ def dispatch(xg: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
     slot = _one_hot(torch.clamp(pos, max=cap - 1), cap, xg.dtype)      # (G,T,k,C)
     combine = torch.einsum("gtke,gtkc->gtec", onehot.to(xg.dtype) * weight[..., None],
                            slot)                                         # (G,T,E,C)
-    expert_in = torch.einsum("gtec,gtd->gecd", (combine > 0).to(xg.dtype), xg)
-    expert_in = shard(expert_in, "batch", "experts", None, None)
+    # (E, G, C, D), the reference's (G, E, C, D) with its first two axes
+    # swapped by the einsum itself: DTensor turns a reshape of a permuted
+    # DTensor into a view of each rank's shard, which cannot flatten it
+    expert_in = torch.einsum("gtec,gtd->egcd", (combine > 0).to(xg.dtype), xg)
+    expert_in = shard(expert_in, "experts", "batch", None, None)
     plan["combine"] = combine
-    plan["x"] = expert_in.permute(1, 0, 2, 3).reshape(e, g * cap, d)
+    plan["x"] = expert_in.reshape(e, g * cap, d)
     return plan
 
 
@@ -186,9 +196,8 @@ def combine(plan: dict, y: torch.Tensor) -> torch.Tensor:
         return torch.einsum("gtk,gtkd->gtd", weight, y.reshape(g, tokens, k, -1))
     comb = plan["combine"]
     e, cap = comb.shape[2], comb.shape[3]
-    expert_out = y.reshape(e, g, cap, -1).permute(1, 0, 2, 3)
-    expert_out = shard(expert_out, "batch", "experts", None, None)
-    return torch.einsum("gtec,gecd->gtd", comb, expert_out)
+    expert_out = shard(y.reshape(e, g, cap, -1), "experts", "batch", None, None)
+    return torch.einsum("gtec,egcd->gtd", comb, expert_out)
 
 
 def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -212,4 +221,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     density = kept.float().mean(dim=1)
     router_prob = gates.mean(dim=1)
     aux = (density * router_prob).sum(-1).mean() * m.num_experts * m.router_aux_weight
+    if is_dtensor(out):
+        # back to (B, T, D) on each rank's groups, as ``group`` made them
+        return on_local_shards(lambda ol: ol.reshape(-1, t, d),
+                               [(out, ("batch", None, None))], ("batch", None, None)), aux
     return out.reshape(b, t, d), aux

@@ -58,8 +58,9 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
         if k == 1:
             loss, metrics, grads = value_and_grad(params, batch)
             return loss, metrics, unflatten(params, grads)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves(params)]
+        # zeros_like keeps a DTensor leaf's placements: each rank
+        # accumulates its own shard of the gradient
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
         total = torch.zeros((), dtype=torch.float32, device=acc[0].device)
         for mb in _split_microbatches(batch, k):
             loss, metrics, grads = value_and_grad(params, mb)

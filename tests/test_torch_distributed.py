@@ -36,7 +36,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 8
 TIME_LIMIT_S = 240
 CHECKS = ("train", "forward", "pipeline", "collectives", "seq_parallel", "mla",
-          "kernel_site")
+          "kernel_site", "ring")
 RULE_SETS = ((False, True), (True, False))          # (fsdp, shard_heads)
 
 
@@ -196,6 +196,7 @@ def _inputs():
           for n, s in (("q", (2, 4096, 4, 16)), ("k", (2, 4096, 2, 16)),
                        ("v", (2, 4096, 2, 16)))}
     sp["do"] = torch.from_numpy(rng.standard_normal((2, 4096, 64)).astype(np.float32))
+    sp["wo"] = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32))
     rng = np.random.default_rng(6)
     mla = {n: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
            for n, s in (("q_lat", (2, 4096, 4, 8)), ("q_rope", (2, 4096, 4, 4)),
@@ -205,7 +206,7 @@ def _inputs():
           for n, s in (("q", (2, 32, 8, 16)), ("k", (2, 32, 2, 16)), ("v", (2, 32, 2, 16)),
                        ("do", (2, 32, 128)))}
     return {
-        "checks": CHECKS, "train_mesh": (2, 4),
+        "checks": CHECKS, "train_mesh": (2, 4), "ring_x": f32(7, (2, 24, 2, 4)),
         "params": params_from_jax(jax.tree.map(np.asarray, params),
                                   pred(pget("qwen2-0.5b")), "cpu"),
         "batch": {k: torch.from_numpy(np.asarray(v).astype(np.int64)) for k, v in batch.items()},
@@ -313,6 +314,16 @@ class TestShardedTrain:
         assert world.ranks[0]["gather_fsdp"] == {
             "attn/wq": "(Replicate(), Shard(dim=1))", "mlp/w_down": "(Replicate(), Shard(dim=0))"}
 
+    def test_microbatches_match_the_unsharded_step(self, world):
+        """Two microbatches, FSDP and sharded heads: the gradient accumulated
+        on each rank's shards gives the unsharded step's loss and leaves."""
+        r0 = world.ranks[0]
+        np.testing.assert_allclose(float(r0["train_mb_loss"]),
+                                   float(r0["train_mb_single_loss"]), rtol=2e-5)
+        assert len(r0["train_mb_leaves"]) == len(r0["train_mb_single_leaves"]) > 10
+        for a, b in zip(r0["train_mb_leaves"], r0["train_mb_single_leaves"]):
+            np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), atol=2e-4)
+
     def test_every_rank_holds_the_same_result(self, world):
         for r in world.ranks[1:]:
             assert float(r["train_loss"]) == float(world.ranks[0]["train_loss"])
@@ -331,6 +342,14 @@ class TestShardedTrain:
     def test_recurrent_forward_on_local_shards(self, world, arch):
         plain, sharded = world.ranks[0][f"forward_{arch}"]
         np.testing.assert_allclose(float(sharded), float(plain), rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["24_0", "12_10"])
+def test_ring_write_on_slot_shards(world, case):
+    for r in world.ranks:
+        want, got = r[f"ring_{case}"]
+        assert torch.equal(want, got)
+        assert (want != 7.0).all()          # every slot written or zeroed
 
 
 def _unflat(like, leaves_):
@@ -396,6 +415,15 @@ class TestSeqParallel:
         for r in world.ranks:
             np.testing.assert_allclose(r[f"sp_{window}"].numpy(), np.asarray(ref), atol=2e-5)
         assert world.ranks[0][f"sp_placements_{window}"] == "(Shard(dim=0), Shard(dim=1))"
+
+    def test_projection_on_the_sequence_shards(self, world):
+        """The output projection of a sequence-sharded result runs on each
+        rank's shard, then the shards are gathered: the residual stream is
+        sharded on the batch only."""
+        for r in world.ranks:
+            want, got, placements = r["sp_projection"]
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+            assert placements == "(Shard(dim=0), Replicate())"
 
     @pytest.mark.parametrize("i,name", [(0, "q"), (1, "k"), (2, "v")])
     def test_gradient_through_the_shards(self, world, i, name):

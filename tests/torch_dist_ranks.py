@@ -29,7 +29,12 @@ Checks, as ``tests/distributed_checks.py`` has them:
   * kernel_site: the kernel call site's head-shard wrapper
     (``attention._on_head_shards``) with ``shard_heads=True``, its per-shard
     piece K3's plain version, against the unsharded attention, forward and
-    gradient.
+    gradient;
+  * ring: a prefill into a ring cache sharded over its slots
+    (``attention._ring_write``) against the write into the whole ring.
+
+The train check also runs the step with 2 microbatches (FSDP, heads
+sharded) against the unsharded one.
 """
 import dataclasses
 import datetime
@@ -104,6 +109,26 @@ def check_train(inp, dev, out):
             out["gather_fsdp"] = {path: str(tuple(x.placements)) for path, x in
                                   zip(("attn/wq", "mlp/w_down"),
                                       (layer["attn"]["wq"], layer["mlp"]["w_down"]))}
+
+    # gradient accumulation over 2 microbatches: each rank accumulates its
+    # own shard of the gradient
+    step_mb = make_train_step(build_model(dataclasses.replace(cfg, microbatches=2),
+                                          max_pos=64, device=dev), AdamWConfig(lr=1e-2))
+    if dist.get_rank() == 0:
+        p1, _, m1 = step_mb(params, init_opt_state(params), batch)
+        out["train_mb_single_loss"] = m1["loss"].cpu()
+        out["train_mb_single_leaves"] = [x.cpu() for x in leaves(p1)]
+    rules = make_rules(mesh, fsdp=True, shard_heads=True)
+    with use_rules(rules):
+        p_sh = param_shardings(cfg, params, rules)
+        params_s = place(params, p_sh, rules)
+        opt_s = place(init_opt_state(params_s),
+                      opt_state_shardings(p_sh, rules, params), rules)
+        batch_s = {k: place(v, rules.sharding("batch", None), rules)
+                   for k, v in batch.items()}
+        p2, _, m2 = step_mb(params_s, opt_s, batch_s)
+        out["train_mb_loss"] = _full(m2["loss"]).cpu()
+        out["train_mb_leaves"] = [_full(x).cpu() for x in leaves(p2)]
 
 
 def check_forward(inp, dev, out):
@@ -181,6 +206,12 @@ def check_seq_parallel(inp, dev, out):
             o = seq_parallel_attention(q, k, v, pos_offset=0, window=window, rules=rules)
             out[f"sp_placements_{window}"] = str(tuple(o.placements))
             out[f"sp_{window}"] = o.full_tensor().cpu()
+        # the output projection on the sequence shards, then gathered
+        from repro_torch.models.attention import seq_shard_projection
+        wo = inp["sp_wo"].to(dev)
+        h = seq_shard_projection(o, wo)
+        out["sp_projection"] = ((o.full_tensor() @ wo).cpu(), h.full_tensor().cpu(),
+                                str(tuple(h.placements)))
     # the gradient through the shards: k and v are read whole by every
     # query shard, so theirs is summed over the shards
     from repro_torch.models.attention import chunked_attention
@@ -250,6 +281,28 @@ def check_kernel_site(inp, dev, out):
     out["kernel_site"] = (want.detach().cpu(), got.detach().cpu())
     out["kernel_site_grad"] = [(a.cpu(), b.cpu()) for a, b in zip(want_grads, grads)]
 
+
+def check_ring(inp, dev, out):
+    """A prefill into a "local" layer's ring cache sharded over its slots
+    (``kv_seq`` over the model dim), on each rank's shard, against the same
+    write into the whole ring: 24 positions from 0 (the last 16 kept, the
+    ring wrapped) and 12 from position 10 (slots 10-15, then 0-5)."""
+    from repro_torch.models.attention import _ring_write
+    from repro_torch.models.model import place
+
+    mesh = make_debug_mesh(2, 4, device=dev)
+    rules = make_rules(mesh)
+    for t, pos in ((24, 0), (12, 10)):
+        x = inp["ring_x"][:, :t].to(dev)
+        want = torch.full((2, 16, 2, 4), 7.0, device=dev)
+        _ring_write(want, x, pos)
+        with use_rules(rules):
+            buf = place(torch.full((2, 16, 2, 4), 7.0, device=dev),
+                        rules.sharding("batch", "kv_seq", None, None), rules)
+            _ring_write(buf, place(x, rules.sharding("batch", None, None, None), rules),
+                        pos)
+            got = buf.full_tensor()
+        out[f"ring_{t}_{pos}"] = (want.cpu(), got.cpu())
 
 def _to(tree, dev):
     if isinstance(tree, dict):
