@@ -216,7 +216,7 @@ failure:
    and recurrentgemma-9b (9 of 38), 2 x 512 tokens, bf16, kernel path
    against plain path, and an f32 step at 2 and 3 layers with two planted
    faults in K4's or K5's backward; 7h: ``Trainer`` for 10 steps at full
-   width, rwkv6-3b at 16 of 32 layers (8 x 1024) and recurrentgemma-9b at
+   width, rwkv6-3b at 8 of 32 layers (8 x 1024) and recurrentgemma-9b at
    4 of 38 (4 x 1024; whole, neither fits the card beside the functional
    optimizer's two states, see ``ARCH_TRAIN``): ms a step, tokens per
    second, the 6 N tokens bound, launches of every kernel, peak memory,
@@ -250,7 +250,7 @@ failure:
    ``lse_combine``, ``pipelined_apply`` at one stage and
    ``ring_halo_exchange`` (zeros at both ends);
 9. the dry run and the roofline counter (``dryrun_phase``, at most about
-   60 s; its time and cuts printed): 9a runs ``python -m
+   120 s; its time and cuts printed): 9a runs ``python -m
    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k,decode_32k
    --mesh single`` in a process of its own (a mesh of device type ``cuda``
    over PyTorch's fake process group of 256 ranks, so the NCCL rank of
@@ -268,7 +268,19 @@ failure:
    step's; each step's ms beside its own counted ``t_bound`` on the H100's
    datasheet constants (the plain step's bytes are eager ones at every
    op, the score-sized intermediates included), both shares and
-   ``useful_flops_ratio`` printed, no gate on the shares;
+   ``useful_flops_ratio`` printed, no gate on the shares; 9c
+   (``kernel_report_phase``) holds the other kernels' reports: the paper's
+   ``run_runtime_sweep`` (2400x600x600, ``di = 10``) counted on the card
+   gives exactly 240 ``kernel.K1`` records whose bytes are the slabs'
+   rows and halo planes, 7.60032e9 B (the slab tasks' aten ops, on the
+   runtime's worker threads, are not seen; their reports are), and the
+   whole-lattice K1 and K2 one record each of 6.912e9 B; one train step
+   of rwkv6-3b (1 of 32 layers) and of recurrentgemma-9b (3 of 38) at
+   phase 7h's batch and length, counted as it runs on the card: each
+   kernel's forward and backward records equal its launch counters; the
+   counted FLOPs and bytes beside the plain step's count on ``meta``
+   tensors (counted in a process of its own while 9a runs), and the
+   kernel step's share of its own bound, no gate;
 10. print the ``serving``, ``training``, ``distribution``, ``roofline`` and
    ``kernels`` JSON lines, the card's name and power limit, and last the
    ``{"ok": true, ...}`` line.
@@ -278,14 +290,17 @@ the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import datetime
 import gc
 import itertools
 import json
+import multiprocessing
 import os
 import pathlib
+import shutil
 import socket
 import subprocess
 import sys
@@ -568,14 +583,17 @@ def k3_bound(b, hq, hkv, tq, tk, hd, q_offset, elem_bytes=2, causal=True):
     """Least time for one K3 call on these inputs: the larger of the bytes
     it must move (q, k, v rows it reads once, o written once: the visible
     keys only, all Tk without a causal mask) over HBM, and its flops (4*hd
-    per visible (head, query, key) pair) over the bf16 tensor-core peak."""
+    per visible (head, query, key) pair, ``FWD_FLOPS_PER_PAIR``, the count
+    K3's wrapper reports) over the bf16 tensor-core peak."""
+    from repro_torch.kernels.flash_attention.kernel import FWD_FLOPS_PER_PAIR
+
     if causal:
         pairs = sum(min(tk, q_offset + t + 1) for t in range(tq))
         visible = min(tk, q_offset + tq)
     else:
         pairs, visible = tq * tk, tk
     nbytes = elem_bytes * hd * (2 * b * hq * tq + 2 * b * hkv * visible)
-    return bound(nbytes, 4 * b * hq * hd * pairs, BF16_FLOPS_PER_S)
+    return bound(nbytes, FWD_FLOPS_PER_PAIR * b * hq * hd * pairs, BF16_FLOPS_PER_S)
 
 
 def k4_bound(b, t, h, hd, elem_bytes=2, state_in=True):
@@ -583,11 +601,14 @@ def k4_bound(b, t, h, hd, elem_bytes=2, state_in=True):
     k, v in their dtype, w and u in f32 read once, o and the final state in
     f32 written once, the carried state read once) over HBM, and its f32
     flops (5 per (b, t, h, i, j): a multiply-add for o, a multiply and a
-    multiply-add for S) over the f32 peak."""
+    multiply-add for S; ``FWD_FLOPS``, the count K4's wrapper reports) over
+    the f32 peak."""
+    from repro_torch.kernels.rwkv6.kernel import FWD_FLOPS
+
     n = b * t * h * hd
     nbytes = 3 * elem_bytes * n + 4 * n + 4 * n + 4 * h * hd \
         + 4 * b * h * hd * hd * (2 if state_in else 1)
-    return bound(nbytes, 5 * n * hd, F32_FLOPS_PER_S)
+    return bound(nbytes, FWD_FLOPS * n * hd, F32_FLOPS_PER_S)
 
 
 def time_k3(label, q, k, v, *, q_offset=0, causal=True, window=0) -> dict:
@@ -1253,8 +1274,11 @@ RESUME_STEPS, RESUME_EVERY = 12, 6
 
 def bwd_bound(b, hq, hkv, tq, tk, hd, causal, window, elem_bytes):
     """Least time of one backward call: five products of the visible (query
-    head, query, key) triples by hd (10 hd flops each) over the bf16 or f32
-    peak, or q, k, v, dO read once and dq, dk, dv written once over HBM."""
+    head, query, key) triples by hd (10 hd flops each, ``BWD_FLOPS_PER_PAIR``)
+    over the bf16 or f32 peak, or q, k, v, dO read once and dq, dk, dv
+    written once over HBM."""
+    from repro_torch.kernels.flash_attention.kernel import BWD_FLOPS_PER_PAIR
+
     if causal:
         qpos = np.arange(tq)[:, None]
         key = np.arange(tk)[None, :]
@@ -1264,7 +1288,7 @@ def bwd_bound(b, hq, hkv, tq, tk, hd, causal, window, elem_bytes):
         pairs = int(ok.sum())
     else:
         pairs = tq * tk
-    flops = 10 * b * hq * hd * pairs
+    flops = BWD_FLOPS_PER_PAIR * b * hq * hd * pairs
     nbytes = elem_bytes * hd * b * 2 * (hq * tq + 2 * hkv * tk)
     peak = BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
     return bound(nbytes, flops, peak)
@@ -1710,8 +1734,9 @@ RWKV_BF16_L2 = 0.5
 # peak.  rwkv6-3b whole (3.09e9 params, 99 GB at that peak) ran out of the
 # 80 GB card in its first update (H100 80GB HBM3); at 16 of 32 layers it
 # is 1.70e9 (54 GB).  recurrentgemma-9b at 4 of 38 layers is 1.84e9 (59
-# GB; 9 layers would be 2.83e9, 90 GB)
-ARCH_TRAIN = {RWKV: dict(layers=16, batch=8, steps=10),
+# GB; 9 layers would be 2.83e9, 90 GB).  rwkv6-3b runs 8 layers, a cut that
+# makes room for phase 9c (at 16 layers a step took 2179 ms, PERF.md §5)
+ARCH_TRAIN = {RWKV: dict(layers=8, batch=8, steps=10),
               GRIFFIN: dict(layers=4, batch=4, steps=10)}
 ARCH_TRAIN_SEQ = 1024
 # K4's backward device ms in one profiled rwkv6-3b step of 7h with its
@@ -1823,7 +1848,7 @@ def recurrent_backward_phase(dev, card) -> dict:
     out = rglru_scan_ref(*leaves)
     auto_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dh, retain_graph=True), 3)
     del out, leaves
-    bnd = bound(20 * t * w + 8 * w, 3 * t * w, F32_FLOPS_PER_S)
+    bnd = bound(20 * t * w + 8 * w, k5.BWD_FLOPS * t * w, F32_FLOPS_PER_S)
     print(f"rglru backward (1, {t}, {w}): {ms:.4f} ms, bound {bnd[0]:.6f} ms by {bnd[1]} "
           f"({bnd[0] / ms:.2%} of bound), plain rglru_scan_bwd_ref {plain_ms:.4f} ms, plain "
           f"autograd {auto_ms:.4f} ms, library: none (no PyTorch call computes the reverse "
@@ -1925,7 +1950,7 @@ def recurrent_backward_phase(dev, card) -> dict:
     t = WKV_BWD_HEADLINE_T
     elems = t * nh * hd
     nbytes = elems * (3 * 2 + 4 + 4 + 3 * 2 + 4) + 3 * nh * hd * hd * 4 + 2 * nh * hd * 4
-    bnd = bound(nbytes, 14 * elems * hd, F32_FLOPS_PER_S)
+    bnd = bound(nbytes, k4.BWD_FLOPS * elems * hd, F32_FLOPS_PER_S)
     print(f"wkv6 backward (1, {t}, {nh}, {hd}) bf16: {ms:.4f} ms, bound {bnd[0]:.6f} ms by "
           f"{bnd[1]} ({bnd[0] / ms:.2%} of bound; 14 flops a (t, h, i, j), {nbytes} B), "
           f"plain wkv6_bwd_ref {plain_ms:.4f} ms, plain autograd {auto_ms:.4f} ms, "
@@ -2486,6 +2511,20 @@ DRYRUN_CELLS = ("qwen2-0.5b", "train_4k,decode_32k")
 MEMORY_RATIO = (0.98, 1.02)
 KERNEL_FLOPS_RATIO = (0.85, 1.0)
 DRYRUN_TIMEOUT_S = 300
+# 9c: every kernel's wrapper reports its launches (op_cost.kernel_launch).
+# The paper's runtime sweep: 240 slab launches of K1, each reading its 10
+# rows and its halo planes (2878 planes in all) and writing its rows (2400),
+# 600 x 600 f32 a plane; the whole-lattice K1 and K2 read and write the
+# lattice once.  The cut recurrent train steps (phase 7h's batch and
+# length, full width): the plain step's count on meta tensors runs the
+# plain loops' every step and takes 10-14 s a microbatch and rwkv layer
+# on the host, so it runs two microbatches and counts the second for the
+# rest (as the dry run does, exact), at these depths, in a process of its
+# own that runs while 9a's subprocess does (the host has the cores)
+K1_SWEEP_BYTES = (2878 + 2400) * 600 * 600 * 4
+LATTICE_BYTES = 2 * 2400 * 600 * 600 * 4
+COUNT_DEPTH = {RWKV: 1, GRIFFIN: 3}
+PLAIN_COUNT_TIMEOUT_S = 240
 
 
 def dryrun_phase(dev, card) -> dict:
@@ -2502,6 +2541,10 @@ def dryrun_phase(dev, card) -> dict:
 
     t_phase = time.perf_counter()
     out: dict = {}
+    plain_counts = pathlib.Path(tempfile.mkdtemp()) / "plain_counts.json"
+    counting = multiprocessing.get_context("spawn").Process(
+        target=count_plain_steps, args=(str(plain_counts),), daemon=True)
+    counting.start()
 
     # -- 9a. the dry run's cells, in a process of its own --------------------
     stamp("9a")
@@ -2655,8 +2698,198 @@ def dryrun_phase(dev, card) -> dict:
         "share_kernel_own_bound": kbound_ms / kernel_ms}
     del params, opt, pmodel, kstep
     free_device_memory()
+    out["kernel_reports"] = kernel_report_phase(dev, card, counting, plain_counts)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 9: {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def count_plain_steps(path: str) -> None:
+    """9c's plain train steps (``use_kernel=False``) counted on ``meta``
+    tensors, in a process of its own: ``{arch: {flops, bytes, t_bound_ms,
+    bottleneck, seconds}}`` written as JSON to ``path``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.launch.dryrun import _two_microbatches_only
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    res = {}
+    for arch in (RWKV, GRIFFIN):
+        cfg = dataclasses.replace(get_config(arch), num_layers=COUNT_DEPTH[arch])
+        batch = next(make_batch_iterator(cfg.vocab_size, ARCH_TRAIN_SEQ,
+                                         ARCH_TRAIN[arch]["batch"], seed=0))
+        b_abs = {k: torch.empty(x.shape, dtype=torch.as_tensor(x).dtype, device="meta")
+                 for k, x in batch.items()}
+        model = build_model(cfg, max_pos=ARCH_TRAIN_SEQ, device="cpu", use_kernel=False)
+        p_abs = model.abstract_params()
+        o_abs = init_opt_state(p_abs)
+        counter = OpCounter()
+        counter.track((p_abs, o_abs, b_abs))
+        t0 = time.perf_counter()
+        with counter, (_two_microbatches_only(counter, cfg.microbatches)
+                       if cfg.microbatches > 2 else contextlib.nullcontext()):
+            make_train_step(model)(p_abs, o_abs, b_abs)
+        roof = analyze(counter.cost)
+        res[arch] = {"flops": roof.flops, "bytes": roof.hbm_bytes,
+                     "t_bound_ms": roof.t_bound * 1e3, "bottleneck": roof.bottleneck,
+                     "seconds": time.perf_counter() - t0}
+    pathlib.Path(path).write_text(json.dumps(res))
+
+
+def kernel_report_phase(dev, card, counting, plain_counts) -> dict:
+    """Phase 9c: K1, K2, K4 and K5 report their launches to the op counter
+    as K3 does.  (i) The paper's sweep counted on the card: 240 K1 records
+    of the hand-counted bytes, the whole-lattice K1 and K2 one record each;
+    (ii) rwkv6-3b and recurrentgemma-9b train steps counted as they run on
+    the card: each kernel's records equal its launch counters, the counted
+    FLOPs and bytes beside the plain step's count on meta tensors, which
+    the process ``counting`` writes to ``plain_counts``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.kernels.flash_attention import kernel as k3
+    from repro_torch.kernels.jacobi.kernel import halo_rows, jacobi_sweep_cuda
+    from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+    from repro_torch.kernels.rglru import kernel as k5
+    from repro_torch.kernels.rwkv6 import kernel as k4
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.roofline.op_cost import measure
+    from repro_torch.stencil.jacobi import run_runtime_sweep
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # -- (i) the paper's stencil --------------------------------------------
+    stamp("9c stencil")
+    f = torch.randn(LATTICE, generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    plane = LATTICE[1] * LATTICE[2] * 4
+    want_bytes = sum((hi - lo + SLAB_ROWS) * plane for lo, hi in (
+        halo_rows(LATTICE[0], (r, r + SLAB_ROWS)) for r in range(0, LATTICE[0], SLAB_ROWS)))
+    if want_bytes != K1_SWEEP_BYTES:
+        fail(f"9c: the slabs' planes give {want_bytes} B, the hand count {K1_SWEEP_BYTES}")
+    t0 = time.perf_counter()
+    (res, stats), counter = measure(run_runtime_sweep, f, di=SLAB_ROWS, num_domains=4,
+                                    workers_per_domain=2, device=dev, record=True)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    k1 = [r for r in counter.records if r.op == "kernel.K1"]
+    aten = [r for r in counter.records if not r.op.startswith("kernel.")]
+    k1_bytes = sum(r.bytes for r in k1)
+    print(f"9c: run_runtime_sweep {LATTICE} di={SLAB_ROWS}, 4 domains x 2 workers, counted "
+          f"on the card in {sweep_s:.2f} s: {len(k1)} kernel.K1 records, {k1_bytes:.6e} B, "
+          f"{sum(r.flops for r in k1):.6e} FLOPs (hand count {K1_SWEEP_BYTES:.6e} B: 2878 "
+          f"planes read, 2400 written); {len(aten)} aten ops on the calling thread "
+          f"({sum(r.bytes for r in aten):.6e} B).  The slab tasks run on the runtime's "
+          f"worker threads: their aten ops are invisible to the dispatch mode, which is "
+          f"the entering thread's, but their K1 reports reach the process's counters")
+    if len(k1) != LATTICE[0] // SLAB_ROWS or k1_bytes != K1_SWEEP_BYTES \
+            or stats.executed != len(k1):
+        fail(f"9c: {len(k1)} K1 records of {k1_bytes} B for {stats.executed} slabs, want "
+             f"{LATTICE[0] // SLAB_ROWS} of {K1_SWEEP_BYTES} B")
+    del res
+    whole = {}
+    for name, fn in (("K1", jacobi_sweep_cuda), ("K2", jacobi_two_step_cuda)):
+        res, counter = measure(fn, f, record=True)
+        torch.cuda.synchronize()
+        recs = [r for r in counter.records if r.op.startswith("kernel.")]
+        whole[name] = [(r.op, r.bytes, r.flops) for r in recs]
+        print(f"9c: whole-lattice {fn.__name__}: records {whole[name]} (want one "
+              f"kernel.{name} of {LATTICE_BYTES:.6e} B)")
+        if [(r.op, r.bytes) for r in recs] != [(f"kernel.{name}", LATTICE_BYTES)]:
+            fail(f"9c: whole-lattice {name} reported {whole[name]}")
+        del res
+    del f
+    free_device_memory()
+    out["stencil"] = {"k1_records": len(k1), "k1_bytes": k1_bytes,
+                      "k1_flops": sum(r.flops for r in k1), "aten_ops_calling_thread": len(aten),
+                      "whole_lattice": whole, "seconds": sweep_s}
+
+    # -- (ii) the recurrent configurations' train steps ----------------------
+    t0 = time.perf_counter()
+    counting.join(PLAIN_COUNT_TIMEOUT_S)
+    if counting.is_alive():
+        counting.kill()
+        counting.join()
+        fail(f"9c: the plain steps' count ran past {PLAIN_COUNT_TIMEOUT_S} s")
+    if counting.exitcode != 0:
+        fail(f"9c: the plain steps' count exited {counting.exitcode}")
+    plain = json.loads(plain_counts.read_text())
+    shutil.rmtree(plain_counts.parent)
+    print(f"9c: the plain steps' count, in a process of its own since 9a, waited for "
+          f"{time.perf_counter() - t0:.1f} s more")
+    counters = {"K3": k3.flash_attention, "K3 backward": k3.flash_attention_backward,
+                "K4": k4.wkv6_cuda, "K4 backward": k4.wkv6_backward,
+                "K5": k5.rglru_scan_cuda, "K5 backward": k5.rglru_scan_backward}
+    for arch in (RWKV, GRIFFIN):
+        stamp(f"9c {arch}")
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, num_layers=COUNT_DEPTH[arch])
+        bsz = ARCH_TRAIN[arch]["batch"]
+        print(f"9c: {arch} train step cut to {cfg.num_layers} of {base.num_layers} layers "
+              f"({cfg.layer_kinds()}), full width, {bsz} x {ARCH_TRAIN_SEQ} in "
+              f"{cfg.microbatches} microbatches (phase 7h's shape), remat {cfg.remat}")
+        batch = {name: torch.as_tensor(x, device=dev) for name, x in next(
+            make_batch_iterator(cfg.vocab_size, ARCH_TRAIN_SEQ, bsz, seed=0)).items()}
+        model = build_model(cfg, max_pos=ARCH_TRAIN_SEQ, device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        opt = init_opt_state(params)
+        step = make_train_step(model)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res, counter = measure(step, params, opt, batch, record=True)
+        torch.cuda.synchronize()
+        count_s = time.perf_counter() - t0
+        del res
+        launched = {name: fn.launches for name, fn in counters.items()}
+        reported = {name: sum(r.op == f"kernel.{name}" for r in counter.records)
+                    for name in counters}
+        kroof = analyze(counter.cost)
+        print(f"9c: {arch} kernel step counted on the card in {count_s:.1f} s: records "
+              f"{reported}, launch counters {launched}")
+        kind = "K4" if arch == RWKV else "K5"
+        if reported != launched or not reported[kind] or not reported[f"{kind} backward"]:
+            fail(f"9c: {arch}: kernel records {reported}, launch counters {launched}")
+
+        proof = plain[arch]
+        r = step(params, opt, batch)          # warm
+        torch.cuda.synchronize()
+        del r
+        t0 = time.perf_counter()
+        for _ in range(3):
+            r = step(params, opt, batch)
+            del r
+        torch.cuda.synchronize()
+        kernel_ms = (time.perf_counter() - t0) / 3 * 1e3
+        kbound_ms = kroof.t_bound * 1e3
+        print(f"9c: {arch} kernel step {kernel_ms:.2f} ms against its own counted bound "
+              f"{kbound_ms:.3f} ms ({kroof.bottleneck}): share {kbound_ms / kernel_ms:.4f}; "
+              f"counted {kroof.flops:.6e} FLOPs, {kroof.hbm_bytes:.6e} bytes; the plain step "
+              f"counted on meta tensors in {proof['seconds']:.1f} s: {proof['flops']:.6e} "
+              f"FLOPs ({kroof.flops / proof['flops']:.4f} of them counted on the kernel "
+              f"step), {proof['bytes']:.6e} bytes ({kroof.hbm_bytes / proof['bytes']:.4f}), "
+              f"t_bound {proof['t_bound_ms']:.3f} ms ({proof['bottleneck']}) [{card}]")
+        out[arch] = {
+            "layers": cfg.num_layers, "batch": bsz, "seq": ARCH_TRAIN_SEQ,
+            "microbatches": cfg.microbatches, "records": reported, "launches": launched,
+            "kernel_step_flops": kroof.flops, "kernel_step_bytes": kroof.hbm_bytes,
+            "kernel_step_t_bound_ms": kbound_ms, "kernel_step_bottleneck": kroof.bottleneck,
+            "kernel_ms": kernel_ms, "share_kernel_own_bound": kbound_ms / kernel_ms,
+            "plain_step_flops": proof["flops"], "plain_step_bytes": proof["bytes"],
+            "plain_step_t_bound_ms": proof["t_bound_ms"], "count_s": count_s,
+            "plain_count_s": proof["seconds"]}
+        del model, params, opt, step, counter
+        free_device_memory()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"9c: {out['seconds']:.1f} s ({card})")
     return out
 
 
@@ -3598,8 +3831,10 @@ def main() -> None:
     stamp(6)
     sites = f.numel()
     io_bytes = 2 * 4 * sites                     # read f once, write once
-    jb = {"jacobi_sweep": bound(io_bytes, 6 * sites, F32_FLOPS_PER_S),    # 5 adds, 1 mul
-          "jacobi_two_step": bound(io_bytes, 12 * sites, F32_FLOPS_PER_S)}
+    jb = {"jacobi_sweep": bound(io_bytes, k12_kernel.flops_per_site() * sites,
+                                F32_FLOPS_PER_S),
+          "jacobi_two_step": bound(io_bytes, k12_kernel.flops_per_site(True) * sites,
+                                   F32_FLOPS_PER_S)}
     buf = torch.empty_like(f)
     ms = {"jacobi_sweep": time_ms(lambda: jacobi_sweep_cuda(f, out=buf), 20),
           "jacobi_two_step": time_ms(lambda: jacobi_two_step_cuda(f, out=buf), 20)}
@@ -3626,7 +3861,8 @@ def main() -> None:
     # rows read once and written once (8 B a site); yardstick: conv3d over
     # the rows and their halo planes
     slab_sites = SLAB_ROWS * LATTICE[1] * LATTICE[2]
-    slab_bound = bound(8 * slab_sites, 6 * slab_sites, F32_FLOPS_PER_S)
+    slab_bound = bound(8 * slab_sites, k12_kernel.flops_per_site() * slab_sites,
+                       F32_FLOPS_PER_S)
     starts = itertools.cycle(range(SLAB_ROWS, 100 * SLAB_ROWS, SLAB_ROWS))
 
     def halo_of(r):
@@ -3745,7 +3981,8 @@ def main() -> None:
     k5 = {}
     for name, t in K5_SHAPES:
         a, bx, h0 = k5_inputs[name]
-        bnd, by = bound(12 * t * gw + 4 * gw, 2 * t * gw, F32_FLOPS_PER_S)
+        bnd, by = bound(12 * t * gw + 4 * gw, rglru_kernel.FWD_FLOPS * t * gw,
+                        F32_FLOPS_PER_S)
         k5[name] = {
             "ms": device_ms(lambda: rglru_scan_cuda(a, bx, chunk=t, h0=h0)),
             "plain_ms": device_ms(lambda: rglru_scan_ref(a, bx, h0), 3),

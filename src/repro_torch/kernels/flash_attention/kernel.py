@@ -49,6 +49,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)     # the compiled head widths (forward and b
 MAX_ROWS = 32                     # (query head, position) rows of an f32 block
 DECODE_ROWS, PREFILL_ROWS = 16, 64     # rows of a bf16 block, by variant
 MAX_SPLITS = 64                   # key-range chunks per row tile
+# flops per visible (query head, query, key) pair and head dim: forward two
+# products (4), backward five (10); the reports and chip_smoke.py's bounds
+FWD_FLOPS_PER_PAIR, BWD_FLOPS_PER_PAIR = 4, 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +91,8 @@ def visible_pairs(tq: int, tk: int, *, causal: bool, window: int, q_offset: int)
 
 def _report(name: str, reads, writes, q, k, *, causal, window, q_offset, per_pair):
     """One launch to ``roofline.op_cost``'s active counters: ``per_pair``
-    flops for each visible (query head, query, key) triple (4 hd forward:
-    two products; 10 hd backward: five)."""
+    hd flops for each visible (query head, query, key) triple
+    (``FWD_FLOPS_PER_PAIR`` or ``BWD_FLOPS_PER_PAIR``)."""
     if op_cost._ACTIVE:
         b, hq, tq, hd = q.shape
         pairs = visible_pairs(tq, k.shape[2], causal=causal, window=window,
@@ -269,7 +272,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(lib, err, "flash_attention_f32_kernel launch")
     flash_attention.launches += 1
     _report("K3", (q, k, v), (out,), q, k, causal=causal, window=window,
-            q_offset=q_offset, per_pair=4)
+            q_offset=q_offset, per_pair=FWD_FLOPS_PER_PAIR)
     return out
 
 
@@ -410,7 +413,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stats = forward_with_stats(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
             _report("K3", (q, k, v), stats, q, k, causal=causal, window=window,
-                    q_offset=q_offset, per_pair=4)
+                    q_offset=q_offset, per_pair=FWD_FLOPS_PER_PAIR)
             stats = stats[1:]
         lse, o32 = stats
     else:
@@ -429,7 +432,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, err, "flash_attention backward launch")
     flash_attention_backward.launches += 1
     _report("K3 backward", (q, k, v, dout, lse, o32), (dq, dk, dv, delta), q, k,
-            causal=causal, window=window, q_offset=q_offset, per_pair=10)
+            causal=causal, window=window, q_offset=q_offset, per_pair=BWD_FLOPS_PER_PAIR)
     return dq, dk, dv
 
 
@@ -449,7 +452,7 @@ class FlashAttentionFn(torch.autograd.Function):
                                                q_offset=q_offset)
             flash_attention.launches += 1
             _report("K3", (q, k, v), (out, lse, o32), q, k, causal=causal,
-                    window=window, q_offset=q_offset, per_pair=4)
+                    window=window, q_offset=q_offset, per_pair=FWD_FLOPS_PER_PAIR)
             ctx.save_for_backward(q, k, v, lse, o32)
         else:
             out = flash_attention(q, k, v, causal=causal, window=window,

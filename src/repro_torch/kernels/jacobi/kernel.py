@@ -13,7 +13,10 @@ a ring of planes that the Tensor Memory Accelerator fills (4-byte
 raises ``ValueError`` — but do not set the CUDA tiling, which is fixed by
 the kernel (``geometry``).  ``launch`` reaches every compiled instance, for
 ``python -m repro_torch.kernels.jacobi.sweep`` and the tests; the wrappers
-launch the default one.
+launch the default one, and report each launch to ``roofline.op_cost``'s
+active counters (:func:`report`): the rows and halo planes it reads, the
+rows it writes, and the plain sweep's operations per site
+(:func:`flops_per_site`).
 """
 from __future__ import annotations
 
@@ -21,9 +24,11 @@ import ctypes
 import functools
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
+from ...roofline import op_cost
 from .. import _build, refuse_grad
-from .ref import jacobi_sweep_ref
+from .ref import jacobi_sweep_ref, jacobi_two_step_ref
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,6 +49,39 @@ def _lib() -> ctypes.CDLL:
                lib.jacobi_encode_ns):
         fn.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flops_per_site(two_step: bool = False) -> float:
+    """Operations per site of one K1 launch (K2's with ``two_step``): the
+    plain sweep's, as ``roofline.op_cost`` counts ``jacobi_sweep_ref`` (or
+    ``jacobi_two_step_ref``) on a small lattice: five adds and a multiply
+    a sweep.  The wrappers' reports and ``chip_smoke.py``'s bounds read it."""
+    f = torch.empty((3, 4, 5), device="meta")
+    with _disable_current_modes():      # an open counter does not count this
+        cost = op_cost.count(jacobi_two_step_ref if two_step else jacobi_sweep_ref, f)
+    return cost.flops / f.numel()
+
+
+def halo_rows(ni: int, rows: tuple[int, int] | None) -> tuple[int, int]:
+    """[lo, hi): output rows ``rows`` of a sweep of ``ni`` rows (all of
+    them for None) and their halo planes inside the lattice, the planes a
+    launch reads."""
+    r0, r1 = (0, ni) if rows is None else rows
+    return max(r0 - 1, 0), min(r1 + 1, ni)
+
+
+def report(f: torch.Tensor, out: torch.Tensor, rows: tuple[int, int] | None = None,
+           two_step: bool = False) -> None:
+    """One launch of K1 (K2 with ``two_step``) to ``roofline.op_cost``'s
+    active counters: the planes of ``f`` it reads (``halo_rows``; never the
+    whole lattice for a slab) and ``out`` once each, and
+    :func:`flops_per_site` for every site of ``out``.  Nothing when no
+    counter is open."""
+    if op_cost._ACTIVE:
+        lo, hi = halo_rows(f.shape[0], rows)
+        op_cost.kernel_launch("K2" if two_step else "K1", (f[lo:hi],), (out,),
+                              flops_per_site(two_step) * out.numel())
 
 
 def geometry(two_step: bool = False, variant: int | None = None) -> dict:
@@ -153,7 +191,7 @@ def jacobi_sweep_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,
         raise ValueError(f"out must be a contiguous {f.dtype} tensor of shape "
                          f"{(r1 - r0, nj, nk)} on {f.device}, apart from f")
     if f.device.type == "cpu":
-        lo, hi = max(r0 - 1, 0), min(r1 + 1, ni)   # the rows and their halo planes
+        lo, hi = halo_rows(ni, (r0, r1))
         out.copy_(jacobi_sweep_ref(f[lo:hi], c)[r0 - lo:r1 - lo])
         return out
     refuse_grad("jacobi_sweep_cuda (K1)", "§2, K1 and K2 gradients", f, out)
@@ -165,6 +203,7 @@ def jacobi_sweep_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,
         torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(lib, err, "jacobi_sweep_kernel launch")
     jacobi_sweep_cuda.launches += 1
+    report(f, out, (r0, r1))
     return out
 
 

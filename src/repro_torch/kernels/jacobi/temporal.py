@@ -14,14 +14,16 @@ and writes step 2 one plane behind.  Its bound is one sweep's bytes,
 
 ``di``/``dj`` keep the reference's contract (``ValueError`` on an
 indivisible lattice or on ``di < 2 or dj < 2``) but do not set the CUDA
-tiling, which is fixed by the kernel.
+tiling, which is fixed by the kernel.  Each launch is reported to
+``roofline.op_cost``'s active counters (``kernel.report``): ``f`` read and
+``out`` written once, two sweeps' operations a site.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build, refuse_grad
-from .kernel import _lib, _shares_storage, check_lattice
+from .kernel import _lib, _shares_storage, check_lattice, report
 from .ref import jacobi_two_step_ref
 
 
@@ -58,6 +60,7 @@ def jacobi_two_step_cuda(f: torch.Tensor, c: float = 1.0 / 6.0, di: int = 10,
         torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(lib, err, "jacobi_two_step_kernel launch")
     jacobi_two_step_cuda.launches += 1
+    report(f, out, two_step=True)
     return out
 
 

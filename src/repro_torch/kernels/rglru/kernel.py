@@ -26,6 +26,11 @@ the same design as the forward (one channel a thread, a ring of
 ``cp.async`` stages walked from the end) and each product and sum rounded
 once, so it equals ``rglru_scan_bwd_ref`` and autograd through
 ``rglru_scan_ref`` bit for bit.
+
+Every launch of either is reported to ``roofline.op_cost``'s active
+counters (:func:`_report`): the tensors it reads and writes, each once,
+and ``FWD_FLOPS`` or ``BWD_FLOPS`` per element, the counts behind
+``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
@@ -34,8 +39,22 @@ import functools
 
 import torch
 
+from ...roofline import op_cost
 from .. import _build
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
+
+# f32 operations per (b, t, w): forward a multiply and an add; backward a
+# multiply-add for the carried gradient and a multiply for da
+FWD_FLOPS, BWD_FLOPS = 2, 3
+
+
+def _report(name: str, reads, writes, per: int) -> None:
+    """One launch to ``roofline.op_cost``'s active counters: ``reads`` and
+    ``writes`` (None skipped) once each, ``per`` flops for each element of
+    the first read.  Nothing when no counter is open."""
+    if op_cost._ACTIVE:
+        op_cost.kernel_launch(name, [x for x in reads if x is not None],
+                              [x for x in writes if x is not None], per * reads[0].numel())
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,6 +147,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> torch.
                            bt, t, w, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "rglru_kernel launch")
     rglru_scan_cuda.launches += 1
+    _report("K5", (a, b, h0), (out,), FWD_FLOPS)
     return out
 
 
@@ -156,6 +176,7 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
         torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, err, "rglru_bwd_kernel launch")
     rglru_scan_backward.launches += 1
+    _report("K5 backward", (a, h, dh, h0), (da, db, dh0), BWD_FLOPS)
     return da, db, dh0
 
 

@@ -38,6 +38,11 @@ f32 and added in a fixed order, with no float atomics, so a repeat gives
 the same bits.  A call of at most ``BWD_CHUNK`` steps is two launches, a
 longer one four.  ``ref.wkv6_bwd_chunked_ref`` is the same algebra in
 plain PyTorch.
+
+Every launch of either is reported to ``roofline.op_cost``'s active
+counters (:func:`_report`): the tensors it reads and writes, each once
+(the scratch and the workspace not), and ``FWD_FLOPS`` or ``BWD_FLOPS``
+per (b, t, h, i, j), the counts behind ``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import functools
 
 import torch
 
+from ...roofline import op_cost
 from .. import _build
 from .ref import wkv6_bwd_ref, wkv6_ref
 
@@ -58,6 +64,21 @@ TIME_CHUNK = 128
 # rwkv6-3b's training length 1024 on an H100 (the same sweep)
 BWD_CHUNK = 64
 BWD_CHUNKS = (32, 64, 128)      # the backward's compiled chunk lengths
+# f32 operations per (b, t, h, i, j) (the notes of csrc/wkv6.cu and
+# wkv6_bwd.cu): forward a multiply-add for o, a multiply and a multiply-add
+# for S; backward the state's recompute (3), G's update (3) and a
+# multiply-add each for dr, dk, dw and dv (8)
+FWD_FLOPS, BWD_FLOPS = 5, 14
+
+
+def _report(name: str, reads, writes, r: torch.Tensor, per: int) -> None:
+    """One launch to ``roofline.op_cost``'s active counters: ``reads`` and
+    ``writes`` (None skipped) once each, ``per`` flops for each (b, t, h,
+    i, j) of ``r``'s shape.  Nothing when no counter is open."""
+    if op_cost._ACTIVE:
+        b, t, h, hd = r.shape
+        op_cost.kernel_launch(name, [x for x in reads if x is not None],
+                              [x for x in writes if x is not None], per * b * t * h * hd * hd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,6 +194,7 @@ def run(r, k, v, w, u, s0, chunk: int, st: torch.Tensor | None = None):
         st.data_ptr(), None if scratch is None else scratch.data_ptr(), b, t, h, hd,
         chunk, torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "wkv6 kernel launch")
+    _report("K4", (r, k, v, w, u, s0), (o, st), r, FWD_FLOPS)
     return o, st
 
 
@@ -222,6 +244,8 @@ def run_backward(r, k, v, w, u, s0, do, dsT, chunk: int):
         *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd, chunk,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "wkv6 backward launch")
+    _report("K4 backward", (r, k, v, w, u, s0, do, dsT), (dr, dk, dv, dw, du, ds0), r,
+            BWD_FLOPS)
     return dr, dk, dv, dw, du.to(u.dtype), ds0
 
 

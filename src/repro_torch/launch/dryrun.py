@@ -252,26 +252,33 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     """Count one step of ``cfg`` at ``shape`` on ``mesh`` (under an open
     process group of the mesh's size): the result's keys from ``chips`` on.
 
-    A stack of more than three repeats of its layer pattern is counted at
-    two and at three repeats (with its remainder layers) and extrapolated to
-    its depth: the first and the last layer differ from the others (the
-    placements they meet), the middle ones cost the same.  A first count of
-    two repeats is thrown away: it warms DTensor's caches, whose misses run
-    ops of their own, as a training loop's first step does."""
+    A prefill or decode stack of more than four repeats of its layer
+    pattern is counted at three and at four repeats (with its remainder
+    layers) and extrapolated to its depth: the first and the last layer
+    differ from the others (the placements they meet), the middle ones cost
+    the same, so the two counts differ by one middle repeat (exact against
+    the whole count, tests).  A train step is counted whole: its peak is not
+    linear in depth.  It lies in the backward of a layer at small depths and
+    moves to the gradients' accumulation at full depth (minicpm3-4b), so no
+    count at a few repeats predicts it.  Where a stack has more than four
+    repeats, a first count of three is thrown away: it warms DTensor's
+    caches, whose misses run ops of their own, as a training loop's first
+    step does."""
     period = len(cfg.pattern)
     reps, rem = divmod(cfg.num_layers, period)
-    if reps > 3:
-        two = dataclasses.replace(cfg, num_layers=2 * period + rem)
-        _count_step(two, shape, mesh)
-        c2, m2, l2, s2 = _count_step(two, shape, mesh)
-        c3, m3, l3, s3 = _count_step(dataclasses.replace(cfg, num_layers=3 * period + rem),
+    if reps > 4:
+        three = dataclasses.replace(cfg, num_layers=3 * period + rem)
+        _count_step(three, shape, mesh)
+    if reps > 4 and shape.kind != "train":
+        c3, m3, l3, s3 = _count_step(three, shape, mesh)
+        c4, m4, l4, s4 = _count_step(dataclasses.replace(cfg, num_layers=4 * period + rem),
                                      shape, mesh)
         cost = Cost()
-        cost.add(c2)
-        cost.add(c3, reps - 2)
-        cost.add(c2, -(reps - 2))
-        memory = {k: m2[k] + (reps - 2) * (m3[k] - m2[k]) for k in m2}
-        t_lower, t_compile = l2 + l3, s2 + s3
+        cost.add(c3)
+        cost.add(c4, reps - 3)
+        cost.add(c3, -(reps - 3))
+        memory = {k: m3[k] + (reps - 3) * (m4[k] - m3[k]) for k in m3}
+        t_lower, t_compile = l3 + l4, s3 + s4
     else:
         cost, memory, t_lower, t_compile = _count_step(cfg, shape, mesh)
 

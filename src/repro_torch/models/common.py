@@ -169,38 +169,131 @@ def act_fn(name: str):
 
 
 def _vocab_iota(logits: torch.Tensor) -> torch.Tensor:
-    """0..V-1 along the vocab axis.  For DTensor logits it is a DTensor
-    sharded as the vocab axis is: a plain ``arange`` would be a replicated
-    value, and the gold pick would gather every rank's logits whole."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    """0..V-1 along the vocab axis, for logits whose vocab axis is whole on
+    every rank: under a mesh a replicated DTensor, else a plain ``arange``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    if not isinstance(logits, DTensor):
+        return iota
+    return DTensor.from_local(iota, logits.device_mesh,
+                              [Replicate()] * logits.device_mesh.ndim, run_check=False)
+
+
+def _vocab_dims(logits: torch.Tensor) -> list[int]:
+    """The mesh dims that shard a DTensor's last (vocab) axis; [] for a
+    plain tensor or a whole vocab."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        return []
+    last = logits.ndim - 1
+    return [m for m, p in enumerate(logits.placements)
+            if p.is_shard() and p.dim % logits.ndim == last]
+
+
+def _vocab_shard(logits, dims: list[int]) -> tuple[int, int]:
+    """(offset, length) of this rank's vocab shard of DTensor ``logits``,
+    sharded over mesh ``dims``."""
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
-    v = logits.shape[-1]
-    if not isinstance(logits, DTensor):
-        return torch.arange(v, device=logits.device)
-    mesh, last = logits.device_mesh, logits.ndim - 1
-    pl = [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
-          for p in logits.placements]
-    (n,), (lo,) = compute_local_shape_and_global_offset((v,), mesh, pl)
-    return DTensor.from_local(torch.arange(lo, lo + n, device=logits.device), mesh, pl,
-                              run_check=False, shape=(v,), stride=(1,))
+    pl = [Shard(0) if m in dims else Replicate() for m in range(logits.device_mesh.ndim)]
+    (n,), (lo,) = compute_local_shape_and_global_offset(
+        (logits.shape[-1],), logits.device_mesh, pl)
+    return lo, n
+
+
+def _gold(labels: torch.Tensor, offset: int, n: int) -> torch.Tensor:
+    """(..., n) bool: where a shard of ``n`` words from ``offset`` holds
+    each token's label."""
+    return torch.arange(offset, offset + n, device=labels.device) == labels[..., None]
+
+
+class VocabParallelNLL(torch.autograd.Function):
+    """Per-token cross-entropy on one rank's vocab shard of the logits: the
+    reference's vocab-parallel form with its collectives made explicit.
+
+    Forward, on local tensors: the f32 max, all-reduced MAX over the vocab's
+    process groups; the sum of ``exp(logits - max)`` and the gold pick at
+    the shard's own offset, each all-reduced SUM.  Three (B, S)-sized
+    all-reduces, nothing vocab-sized on the wire.  Saved: the local logits
+    shard and the (B, S) max and sum.  Backward, without a collective:
+    ``exp(shifted) * (g / z) + where(gold, -g, 0)``, the product and the
+    sum the plain form's autograd forms, so that groups of one rank give
+    its gradient bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, groups):
+        import torch.distributed as dist
+
+        x = logits.float()
+        m = torch.amax(x, dim=-1, keepdim=True)
+        for g in groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        shifted = x - m
+        del x
+        z = torch.sum(torch.exp(shifted), dim=-1)
+        gold = torch.sum(torch.where(_gold(labels, offset, shifted.shape[-1]), shifted, 0.0),
+                         dim=-1)
+        del shifted
+        for g in groups:
+            dist.all_reduce(z, group=g)
+        for g in groups:
+            dist.all_reduce(gold, group=g)
+        ctx.offset = offset
+        ctx.save_for_backward(logits, labels, m, z)
+        return torch.log(z) - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, m, z = ctx.saved_tensors
+        d = logits.to(torch.float32, copy=True).sub_(m).exp_().mul_((g / z)[..., None])
+        d.add_(torch.where(_gold(labels, ctx.offset, d.shape[-1]), -g[..., None], 0.0))
+        return d.to(logits.dtype), None, None, None
+
+
+def _vocab_parallel_nll(logits, labels: torch.Tensor, dims: list[int]):
+    """Per-token nll of vocab-sharded DTensor ``logits`` as a DTensor placed
+    as the labels are: the logits' placements on the other axes,
+    replicated over the vocab's mesh dims."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = logits.device_mesh
+    want = [Replicate() if m in dims else p for m, p in enumerate(logits.placements)]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    local_labels = labels.redistribute(mesh, want).to_local()
+    offset, _ = _vocab_shard(logits, dims)
+    nll = VocabParallelNLL.apply(logits.to_local(), local_labels, offset,
+                                 tuple(mesh.get_group(m) for m in dims))
+    return DTensor.from_local(nll, mesh, want, run_check=False, shape=labels.shape,
+                              stride=labels.stride())
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean token cross-entropy; logits (..., V) in any float dtype.
 
-    The reference's vocab-parallel form (max, sum-exp and gold pick as plain
-    reductions over the vocab axis), kept so a later sharded port needs no
-    rewrite."""
-    logits = logits.float()
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    shifted = logits - m
-    z = torch.sum(torch.exp(shifted), dim=-1)
-    vocab_iota = _vocab_iota(logits)
-    gold_shifted = torch.sum(
-        torch.where(vocab_iota == labels[..., None], shifted, 0.0), dim=-1)
-    nll = torch.log(z) - gold_shifted
+    The reference's vocab-parallel form: max, sum-exp and gold pick as
+    reductions over the vocab axis.  Logits whose vocab axis a mesh shards
+    (a DTensor) take :class:`VocabParallelNLL` on each rank's shard, which
+    XLA's partitioner makes of the same form in the reference: local
+    partials and (B, S)-sized all-reduces, no rank holding its rows'
+    logits over the whole vocab.  Other logits take the form as written."""
+    dims = _vocab_dims(logits)
+    if dims:
+        nll = _vocab_parallel_nll(logits, labels, dims)
+    else:
+        logits = logits.float()
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        shifted = logits - m
+        z = torch.sum(torch.exp(shifted), dim=-1)
+        vocab_iota = _vocab_iota(logits)
+        gold_shifted = torch.sum(
+            torch.where(vocab_iota == labels[..., None], shifted, 0.0), dim=-1)
+        nll = torch.log(z) - gold_shifted
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)

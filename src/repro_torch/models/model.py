@@ -174,6 +174,7 @@ class Model:
         if last_only:
             x = x[:, -1:]
         head = params["head"] if not cfg.tie_embeddings else params["tok"].T
+        x = shard(x, "batch", None, None)
         logits = x @ head.to(x.dtype)
         logits = shard(logits, "batch", None, "vocab")
         return logits, new_caches, aux

@@ -39,8 +39,11 @@ A hand-written kernel reached through ``ctypes`` does not pass the
 dispatcher, so the counter cannot see it: its wrapper reports each launch
 with :func:`kernel_launch` (what it reads and writes, each once, and its
 operations), so that a step that runs the kernels is counted with the
-kernels' own bytes.  K3's forward and backward report; K1, K2, K4 and K5
-do not yet, so a count of a step that launches them misses their cost.
+kernels' own bytes.  Every kernel's wrapper reports, forward and backward:
+K1 and K2 (``kernels/jacobi``), K3, K4 and K5.  The counters in
+``_ACTIVE`` are the process's, not a thread's, so a launch on another
+thread (autograd's backward, the runtime's workers) is counted too; its
+aten ops are not, a dispatch mode being the entering thread's.
 
 ``count(fn, *args)`` is the entry point; ``measure`` also returns ``fn``'s
 result and the counter (memory, and with ``record=True`` one ``OpRecord``
@@ -49,6 +52,7 @@ per op for ``top_ops`` and ``analysis.collective_bytes``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from collections import defaultdict
 from typing import Any, Callable, NamedTuple
@@ -250,13 +254,14 @@ def wire_bytes(rec: OpRecord) -> tuple[str, float] | None:
 
 # the counters entered and not yet left, for :func:`kernel_launch` (a list
 # of the process, not of a thread: autograd runs a CUDA backward on a
-# thread of its own)
+# thread of its own, the runtime's slab tasks run on its workers)
 _ACTIVE: list["OpCounter"] = []
 
 
 class OpCounter(TorchDispatchMode):
     """Counts every local op run under it (see the module docstring) and
-    tracks the live bytes of the storages it has seen."""
+    tracks the live bytes of the storages it has seen.  Its totals are
+    updated under a lock: kernels report from other threads."""
 
     def __init__(self, record: bool = False):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -269,6 +274,8 @@ class OpCounter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._storages: dict[int, tuple[weakref.ref, int]] = {}
+        # re-entrant: a storage's weakref callback may fire inside an update
+        self.lock = threading.RLock()
 
     # -- memory -------------------------------------------------------------
     def _locals(self, tree: Any) -> list[torch.Tensor]:
@@ -284,18 +291,20 @@ class OpCounter(TorchDispatchMode):
     def _track_storage(self, t: torch.Tensor) -> int:
         st = t.untyped_storage()
         key = id(st)
-        if key in self._storages:
-            return 0
-        n = st.nbytes()
-        self._storages[key] = (weakref.ref(st, lambda _r, k=key: self._free(k)), n)
-        self.live += n
-        self.peak = max(self.peak, self.live)
+        with self.lock:
+            if key in self._storages:
+                return 0
+            n = st.nbytes()
+            self._storages[key] = (weakref.ref(st, lambda _r, k=key: self._free(k)), n)
+            self.live += n
+            self.peak = max(self.peak, self.live)
         return n
 
     def _free(self, key: int) -> None:
-        entry = self._storages.pop(key, None)
-        if entry is not None:
-            self.live -= entry[1]
+        with self.lock:
+            entry = self._storages.pop(key, None)
+            if entry is not None:
+                self.live -= entry[1]
 
     def storage_ids(self, tree: Any) -> dict[int, int]:
         """{storage id: bytes} of ``tree``'s tensors (local shards)."""
@@ -321,39 +330,41 @@ class OpCounter(TorchDispatchMode):
                 any(isinstance(t, self._fake) for t in _tensors(args)):
             return out                  # DTensor's sharding propagation
         rec = op_cost(func, args, kwargs, out)
-        self.cost.flops += rec.flops
-        self.cost.bytes += rec.bytes
         wire = wire_bytes(rec)
-        if wire is not None:
-            self.cost.coll[wire[0]] += wire[1]
-        if self.records is not None:
-            self.records.append(rec)
-        for t in outs:
-            self._track_storage(t)
+        with self.lock:
+            self.cost.flops += rec.flops
+            self.cost.bytes += rec.bytes
+            if wire is not None:
+                self.cost.coll[wire[0]] += wire[1]
+            if self.records is not None:
+                self.records.append(rec)
+            for t in outs:
+                self._track_storage(t)
         return out
 
 
 def kernel_launch(name: str, reads, writes, flops: float) -> None:
     """Count one launch of a hand-written kernel in every active counter:
-    ``reads`` and ``writes`` (tensors) each once, ``flops`` as given, the
+    each tensor of ``reads`` read once and each of ``writes`` written once
+    (a tensor updated in place is in both), ``flops`` as given, the
     storages of ``writes`` as live.  Costs nothing when no counter is
-    active."""
+    active; safe from any thread."""
     if not _ACTIVE:
         return
-    seen, nbytes = set(), 0
-    for t in _tensors(list(reads)) + _tensors(list(writes)):
-        if id(t) not in seen:
-            seen.add(id(t))
-            nbytes += _nbytes(t)
-    result_bytes = float(sum(_nbytes(t) for t in _tensors(list(writes))))
+
+    def once(tensors):
+        return {id(t): _nbytes(t) for t in _tensors(list(tensors))}
+    result_bytes = float(sum(once(writes).values()))
+    nbytes = float(sum(once(reads).values())) + result_bytes
     for counter in list(_ACTIVE):
-        counter.cost.flops += flops
-        counter.cost.bytes += nbytes
-        if counter.records is not None:
-            counter.records.append(OpRecord(f"kernel.{name}", float(flops), float(nbytes),
-                                            0.0, result_bytes))
-        for t in _tensors(list(writes)):
-            counter._track_storage(t)
+        with counter.lock:
+            counter.cost.flops += flops
+            counter.cost.bytes += nbytes
+            if counter.records is not None:
+                counter.records.append(OpRecord(f"kernel.{name}", float(flops),
+                                                float(nbytes), 0.0, result_bytes))
+            for t in _tensors(list(writes)):
+                counter._track_storage(t)
 
 
 def measure(fn: Callable, *args, record: bool = False, **kwargs):

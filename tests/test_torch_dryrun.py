@@ -123,13 +123,19 @@ def _fakepg_main(out):
         res["grad_placements"] = seen
         res["param_placements"] = [str(tuple(pl)) for pl in _placement_leaves(
             build_model(cfg_mb, device="cpu").abstract_params(), want)]
-        # five layers: counted at two and three and extrapolated, against
-        # the whole stack counted with DTensor's caches as warm
-        five = dataclasses.replace(cfg, num_layers=5)
-        res["extrapolated"] = count_cell(five, shape, mesh)
-        cost, memory, _, _ = _count_step(five, shape, mesh)
+        # six layers of a prefill: counted at three and four and
+        # extrapolated, against the whole stack counted with DTensor's caches
+        # as warm; a train step of six layers is counted whole
+        six = dataclasses.replace(cfg, num_layers=6)
+        prefill = dataclasses.replace(SHAPES["prefill_32k"], seq_len=64, global_batch=8)
+        res["extrapolated"] = count_cell(six, prefill, mesh)
+        cost, memory, _, _ = _count_step(six, prefill, mesh)
         res["whole"] = {"flops": cost.flops, "bytes": cost.bytes, "coll": dict(cost.coll),
                         "memory": memory}
+        res["train_six"] = count_cell(six, shape, mesh)
+        cost, memory, _, _ = _count_step(six, shape, mesh)
+        res["train_six_whole"] = {"flops": cost.flops, "bytes": cost.bytes,
+                                  "coll": dict(cost.coll), "memory": memory}
         # four microbatches: two run, the second counted twice more, against
         # all four counted (DTensor's caches warmed by a first count)
         cfg4 = dataclasses.replace(cfg, microbatches=4)
@@ -202,9 +208,22 @@ def test_gradient_accumulates_on_the_parameters_shards(sides):
 
 
 def test_depth_extrapolation_is_the_whole_count(sides):
-    """A stack of five layers counted at two and three and extrapolated
-    gives the whole stack's FLOPs, bytes, collectives and memory."""
+    """A prefill stack of six layers counted at three and four and
+    extrapolated gives the whole stack's FLOPs, bytes, collectives and
+    memory."""
     got, want = sides.fake["extrapolated"], sides.fake["whole"]
+    roof = got["roofline"]
+    assert roof["flops_per_chip"] == want["flops"]
+    assert roof["hbm_bytes_per_chip"] == want["bytes"]
+    assert roof["coll_by_kind"] == pytest.approx(want["coll"], rel=1e-12)
+    assert got["memory"] == want["memory"]
+
+
+def test_train_step_is_counted_whole(sides):
+    """A train step's peak is not linear in depth, so a train cell counts
+    the whole stack (after a warm-up count): the whole count's FLOPs,
+    bytes, collectives and memory."""
+    got, want = sides.fake["train_six"], sides.fake["train_six_whole"]
     roof = got["roofline"]
     assert roof["flops_per_chip"] == want["flops"]
     assert roof["hbm_bytes_per_chip"] == want["bytes"]
@@ -350,8 +369,11 @@ def test_long_500k_skips_are_the_reference(monkeypatch):
 
 
 def test_dryrun_results_present_and_clean():
-    """The committed table covers all 40 single-pod cells with no errors
-    (the twin of ``test_dryrun_results_present_and_clean``)."""
+    """The committed table covers all 40 single-pod cells and the ten
+    multi-pod train cells with no errors (the twin of
+    ``test_dryrun_results_present_and_clean``), and every train cell whose
+    arguments fit a card of 80 GiB has its counted peak under 80 GiB (F9:
+    no rank holds its rows' logits over the whole vocab)."""
     d = json.loads((ROOT / "experiments" / "torch_dryrun.json").read_text())
     single = {k: v for k, v in d.items() if k.endswith("|single")}
     assert len(single) == 40
@@ -362,6 +384,16 @@ def test_dryrun_results_present_and_clean():
     for v in ok:
         assert set(v) == REF_KEYS and set(v["memory"]) == MEMORY_KEYS
         assert v["chips"] == 256 and v["roofline"]["flops_per_chip"] > 0
+    multi = {k: v for k, v in d.items() if k.endswith("|train_4k|multi")}
+    assert len(multi) == 10 and all(v["status"] == "ok" for v in multi.values())
+    for v in multi.values():
+        assert set(v) == REF_KEYS and v["chips"] == 512
+    card = 80 * 2 ** 30
+    train = {k: v["memory"] for k, v in d.items() if "|train_4k|" in k}
+    assert len(train) == 20
+    over = {k: m["peak_estimate_per_chip"] / 2 ** 30 for k, m in train.items()
+            if m["argument_bytes_per_chip"] < card and m["peak_estimate_per_chip"] >= card}
+    assert not over, over
 
 
 if __name__ == "__main__":

@@ -143,6 +143,47 @@ class TestKernelLaunch:
             assert [r.op for r in counter.records] == ["aten.empty", "kernel.K"]
         assert inner.peak == 64 * 32 * 4 + 32 * 16 * 2 + 64 * 16 * 4
 
+    def test_reports_from_many_threads_lose_nothing(self):
+        """The runtime's workers report K1 launches while the counting thread
+        runs ops: more threads than cores, a short switch interval, every
+        launch's flops, bytes and record counted, and each output storage
+        (slabs of one result, reported from several threads) live once."""
+        import threading
+
+        from repro_torch.roofline.op_cost import kernel_launch, measure
+
+        threads, n = 4 * (os.cpu_count() or 1), 400
+        a = _meta(8, 8, dtype=torch.float32)
+        results = [_meta(2, 4, dtype=torch.float32) for _ in range(n)]
+        start = threading.Barrier(threads)
+
+        def work(i):
+            start.wait(timeout=60)
+            for res in results[i % 2::2] if i % 3 else results:
+                kernel_launch("K", (a,), (res[i % 2],), 3.0)
+
+        def run(a):
+            pool = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+            for t in pool:
+                t.start()
+            for _ in range(200):
+                torch.add(a, 1.0)            # the counting thread's own ops
+            for t in pool:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in pool)
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            _, counter = measure(run, a, record=True)
+        finally:
+            sys.setswitchinterval(old)
+        launches = sum(n if i % 3 == 0 else n // 2 for i in range(threads))
+        assert sum(r.op == "kernel.K" for r in counter.records) == launches
+        assert counter.cost.flops == 3.0 * launches + 200 * 64
+        assert counter.cost.bytes == (8 * 8 * 4 + 4 * 4) * launches + 200 * 2 * 8 * 8 * 4
+        # the argument, every result's storage once, an add's result or two
+        assert counter.peak <= 8 * 8 * 4 + n * 2 * 4 * 4 + 2 * 8 * 8 * 4
+
     def test_no_counter_no_cost(self):
         from repro_torch.roofline import op_cost
 
@@ -193,6 +234,220 @@ class TestKernelLaunch:
         qb, kvb = b * t * hq * hd * 2, b * t * hkv * hd * 2
         lse, o32 = b * hq * t * 4, b * t * hq * hd * 4
         assert recs["kernel.K3"].bytes == qb + 2 * kvb + qb + lse + o32
+
+
+PAPER = (2400, 600, 600)            # the paper's lattice; 10-row slabs
+PLANE = 600 * 600 * 4
+
+
+def _records(fn, *args):
+    from repro_torch.roofline.op_cost import measure
+
+    _, counter = measure(fn, *args, record=True)
+    return [r for r in counter.records if r.op.startswith("kernel.")]
+
+
+class TestKernelReports:
+    """Each wrapper's report helper (what it passes to ``kernel_launch``)
+    against hand counts on ``meta`` tensors: the reads and writes of one
+    launch once each, and the flops behind chip_smoke.py's bounds."""
+
+    def test_jacobi_flops_are_the_plain_sweeps(self):
+        from repro_torch.kernels.jacobi import kernel as k1
+        from repro_torch.kernels.jacobi.ref import jacobi_sweep_ref, jacobi_two_step_ref
+        from repro_torch.roofline.op_cost import OpCounter, count
+
+        f = _meta(7, 5, 9, dtype=torch.float32)
+        assert k1.flops_per_site() == count(jacobi_sweep_ref, f).flops / f.numel() == 6
+        assert k1.flops_per_site(True) == count(jacobi_two_step_ref, f).flops / f.numel() == 12
+        k1.flops_per_site.cache_clear()
+        with OpCounter() as counter:            # read inside an open counter
+            assert k1.flops_per_site() == 6
+        assert counter.cost.flops == 0 and counter.cost.bytes == 0
+
+    @pytest.mark.parametrize("r0,planes_read", [(0, 11), (10, 12), (1200, 12), (2390, 11)])
+    def test_k1_slab_reads_its_rows_and_halo_planes(self, r0, planes_read):
+        from repro_torch.kernels.jacobi.kernel import report
+
+        f = _meta(*PAPER, dtype=torch.float32)
+        out = _meta(10, *PAPER[1:], dtype=torch.float32)
+        (rec,) = _records(lambda: report(f, out, (r0, r0 + 10)))
+        assert rec.op == "kernel.K1"
+        assert rec.bytes == (planes_read + 10) * PLANE
+        assert rec.result_bytes == 10 * PLANE
+        assert rec.flops == 6 * 10 * 600 * 600
+
+    def test_k1_runtime_sweep_hand_count(self):
+        """240 slab launches of the paper's sweep: 2878 planes read (each
+        slab's 10 rows and its halo planes), 2400 written."""
+        from repro_torch.kernels.jacobi.kernel import report
+
+        f, res = _meta(*PAPER, dtype=torch.float32), _meta(*PAPER, dtype=torch.float32)
+
+        def sweep():
+            for r0 in range(0, PAPER[0], 10):
+                report(f, res[r0:r0 + 10], (r0, r0 + 10))
+        recs = _records(sweep)
+        assert len(recs) == 240 and {r.op for r in recs} == {"kernel.K1"}
+        assert sum(r.bytes for r in recs) == (2878 + 2400) * PLANE == 7.60032e9
+        assert sum(r.flops for r in recs) == 6 * 2400 * 600 * 600
+
+    @pytest.mark.parametrize("two_step", [False, True])
+    def test_whole_lattice_k1_and_k2(self, two_step):
+        from repro_torch.kernels.jacobi.kernel import report
+
+        f, out = _meta(*PAPER, dtype=torch.float32), _meta(*PAPER, dtype=torch.float32)
+        (rec,) = _records(lambda: report(f, out, two_step=two_step))
+        assert rec.op == ("kernel.K2" if two_step else "kernel.K1")
+        assert rec.bytes == 2 * 2400 * PLANE == 6.912e9
+        assert rec.flops == (12 if two_step else 6) * 2400 * 600 * 600
+
+    @pytest.mark.parametrize("state_in", [True, False])
+    def test_k4_forward(self, state_in):
+        """rwkv6-3b's prefill: r, k, v bf16, w and o f32, u, the state in
+        (when given) and out."""
+        from repro_torch.kernels.rwkv6 import kernel as k4
+
+        b, t, h, hd = 1, 1024, 40, 64
+        r, k, v = (_meta(b, t, h, hd) for _ in range(3))
+        w, o = _meta(b, t, h, hd, dtype=torch.float32), _meta(b, t, h, hd, dtype=torch.float32)
+        u = _meta(h, hd, dtype=torch.float32)
+        s0 = _meta(b, h, hd, hd, dtype=torch.float32) if state_in else None
+        st = _meta(b, h, hd, hd, dtype=torch.float32)
+        (rec,) = _records(lambda: k4._report("K4", (r, k, v, w, u, s0), (o, st), r,
+                                             k4.FWD_FLOPS))
+        n, state = b * t * h * hd, 4 * b * h * hd * hd
+        assert rec.op == "kernel.K4"
+        assert rec.bytes == 3 * 2 * n + 4 * n + 4 * h * hd + 4 * n + state * (2 if state_in else 1)
+        assert rec.flops == 5 * n * hd
+
+    def test_k4_state_updated_in_place_is_read_and_written(self):
+        """Serving's decode passes its cached state as ``s0`` and K4 writes
+        the final state into it: one state read and one written."""
+        from repro_torch.kernels.rwkv6 import kernel as k4
+
+        b, t, h, hd = 1, 1, 40, 64
+        r, k, v = (_meta(b, t, h, hd) for _ in range(3))
+        w, o = _meta(b, t, h, hd, dtype=torch.float32), _meta(b, t, h, hd, dtype=torch.float32)
+        u, s0 = _meta(h, hd, dtype=torch.float32), _meta(b, h, hd, hd, dtype=torch.float32)
+        (rec,) = _records(lambda: k4._report("K4", (r, k, v, w, u, s0), (o, s0), r,
+                                             k4.FWD_FLOPS))
+        n = b * t * h * hd
+        assert rec.bytes == 3 * 2 * n + 4 * n + 4 * h * hd + 4 * n + 2 * 4 * b * h * hd * hd
+
+    def test_k4_backward(self):
+        from repro_torch.kernels.rwkv6 import kernel as k4
+
+        b, t, h, hd = 1, 1024, 40, 64
+        bf = [_meta(b, t, h, hd) for _ in range(6)]                 # r k v dr dk dv
+        f32 = [_meta(b, t, h, hd, dtype=torch.float32) for _ in range(3)]    # w do dw
+        u, du = _meta(h, hd, dtype=torch.float32), _meta(h, hd, dtype=torch.float32)
+        s0, dst, ds0 = (_meta(b, h, hd, hd, dtype=torch.float32) for _ in range(3))
+        r, k, v, dr, dk, dv = bf
+        w, do, dw = f32
+        (rec,) = _records(lambda: k4._report(
+            "K4 backward", (r, k, v, w, u, s0, do, dst), (dr, dk, dv, dw, du, ds0), r,
+            k4.BWD_FLOPS))
+        n = b * t * h * hd
+        assert rec.op == "kernel.K4 backward"
+        assert rec.bytes == n * (3 * 2 + 4 + 4 + 3 * 2 + 4) + 3 * 4 * b * h * hd * hd \
+            + 2 * 4 * h * hd
+        assert rec.flops == 14 * n * hd
+
+    @pytest.mark.parametrize("state_in", [True, False])
+    def test_k5_forward_and_backward(self, state_in):
+        """recurrentgemma-9b's width: a, b, h, dh, da, db f32 (B, T, W); h0 and
+        dh0 (B, W) when a state is carried in."""
+        from repro_torch.kernels.rglru import kernel as k5
+
+        bt, t, w = 1, 1024, 4096
+        a, x, h, dh, da, db = (_meta(bt, t, w, dtype=torch.float32) for _ in range(6))
+        h0, dh0 = ((_meta(bt, w, dtype=torch.float32) for _ in range(2)) if state_in
+                   else (None, None))
+        fwd, bwd = _records(lambda: (k5._report("K5", (a, x, h0), (h,), k5.FWD_FLOPS),
+                                     k5._report("K5 backward", (a, h, dh, h0), (da, db, dh0),
+                                                k5.BWD_FLOPS)))
+        n, state = bt * t * w, (4 * bt * w if state_in else 0)
+        assert (fwd.op, fwd.bytes, fwd.flops) == ("kernel.K5", 12 * n + state, 2 * n)
+        assert (bwd.op, bwd.bytes, bwd.flops) == ("kernel.K5 backward", 20 * n + 2 * state,
+                                                  3 * n)
+
+    # -- on the card: the records of real launches -------------------------------
+
+    @staticmethod
+    def _card():
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+
+    @pytest.mark.cuda
+    def test_k1_and_k2_report_their_launches_on_the_card(self):
+        self._card()
+        from repro_torch.kernels.jacobi.kernel import jacobi_sweep_cuda
+        from repro_torch.kernels.jacobi.temporal import jacobi_two_step_cuda
+
+        ni, nj, nk = 40, 30, 64
+        plane = nj * nk * 4
+        f = torch.randn(ni, nj, nk, device="cuda")
+        res = torch.empty_like(f)
+
+        def run(f):
+            for r0 in range(0, ni, 10):
+                jacobi_sweep_cuda(f, out=res[r0:r0 + 10], rows=(r0, r0 + 10))
+            jacobi_sweep_cuda(f)
+            jacobi_two_step_cuda(f)
+        recs = _records(run, f)
+        assert [r.op for r in recs] == ["kernel.K1"] * 5 + ["kernel.K2"]
+        assert [r.bytes / plane for r in recs] == [21, 22, 22, 21, 80, 80]
+        assert [r.flops for r in recs] == [6 * 10 * nj * nk] * 4 + [6 * f.numel(),
+                                                                      12 * f.numel()]
+
+    @pytest.mark.cuda
+    def test_k4_reports_its_launches_on_the_card(self):
+        self._card()
+        from repro_torch.kernels.rwkv6 import kernel as k4
+
+        b, t, h, hd = 2, 300, 4, 64
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        r, k, v = (torch.randn(b, t, h, hd, generator=gen, device="cuda").bfloat16()
+                   .requires_grad_(True) for _ in range(3))
+        w = torch.rand(b, t, h, hd, generator=gen, device="cuda").requires_grad_(True)
+        u = torch.randn(h, hd, generator=gen, device="cuda").requires_grad_(True)
+
+        def step(r, k, v, w, u):
+            o, st = k4.wkv6_cuda(r, k, v, w, u, chunk=t)
+            return torch.autograd.grad(o.sum() + st.sum(), (r, k, v, w, u))
+        k4.wkv6_cuda.launches = k4.wkv6_backward.launches = 0
+        recs = _records(step, r, k, v, w, u)
+        assert [x.op for x in recs] == ["kernel.K4", "kernel.K4 backward"]
+        assert (k4.wkv6_cuda.launches, k4.wkv6_backward.launches) == (1, 1)
+        n, state = b * t * h * hd, 4 * b * h * hd * hd
+        assert recs[0].bytes == 3 * 2 * n + 4 * n + 4 * h * hd + 4 * n + state
+        assert recs[0].flops == 5 * n * hd
+        # no s0 given: the state's gradient read (dsT), ds0 written
+        assert recs[1].bytes == n * (3 * 2 + 4 + 4 + 3 * 2 + 4) + 2 * state + 2 * 4 * h * hd
+        assert recs[1].flops == 14 * n * hd
+
+    @pytest.mark.cuda
+    def test_k5_reports_its_launches_on_the_card(self):
+        self._card()
+        from repro_torch.kernels.rglru import kernel as k5
+
+        bt, t, w = 2, 100, 256
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        a = torch.rand(bt, t, w, generator=gen, device="cuda").requires_grad_(True)
+        x = torch.randn(bt, t, w, generator=gen, device="cuda").requires_grad_(True)
+        h0 = torch.randn(bt, w, generator=gen, device="cuda").requires_grad_(True)
+
+        def step(a, x, h0):
+            h = k5.rglru_scan_cuda(a, x, chunk=t, h0=h0)
+            return torch.autograd.grad(h.sum(), (a, x, h0))
+        k5.rglru_scan_cuda.launches = k5.rglru_scan_backward.launches = 0
+        recs = _records(step, a, x, h0)
+        assert [r.op for r in recs] == ["kernel.K5", "kernel.K5 backward"]
+        assert (k5.rglru_scan_cuda.launches, k5.rglru_scan_backward.launches) == (1, 1)
+        n = bt * t * w
+        assert (recs[0].bytes, recs[0].flops) == (12 * n + 4 * bt * w, 2 * n)
+        assert (recs[1].bytes, recs[1].flops) == (20 * n + 8 * bt * w, 3 * n)
 
 
 class TestRooflineTerms:
