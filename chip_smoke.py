@@ -215,15 +215,19 @@ failure:
    (``arch_phase``): one full-width train step of rwkv6-3b (8 of 32 layers)
    and recurrentgemma-9b (9 of 38), 2 x 512 tokens, bf16, kernel path
    against plain path, and an f32 step at 2 and 3 layers with two planted
-   faults in K4's or K5's backward; 7h: ``Trainer`` for 10 steps at full
-   width, rwkv6-3b at 8 of 32 layers (8 x 1024) and recurrentgemma-9b at
-   4 of 38 (4 x 1024; whole, neither fits the card beside the functional
-   optimizer's two states, see ``ARCH_TRAIN``): ms a step, tokens per
-   second, the 6 N tokens bound, launches of every kernel, peak memory,
-   one profiled step's idle share and each kernel's device ms; the loss
-   must fall; 7i: ``python -m
-   repro_torch.launch.train --arch A --smoke --steps 20`` for both on the
-   card.  Every cut is printed;
+   faults in K4's or K5's backward; 7h: ``Trainer`` (whose step is
+   donated: params and optimizer state updated in place) at full width,
+   rwkv6-3b whole, 32 of 32 layers (8 x 1024, 8 microbatches; its peak
+   must stay under ``ARCH_TRAIN_PEAK``) and recurrentgemma-9b at 4 of 38
+   (4 x 1024; whole it needs 172 GB, see ``ARCH_TRAIN``): ms a step,
+   tokens per second, the 6 N tokens bound, launches of every kernel, peak
+   memory, one profiled step's idle share and each kernel's device ms; the
+   loss must fall; 7i: ``python -m repro_torch.launch.train --arch A
+   --smoke --steps 20`` for both on the card.  7j (``donation_check``):
+   one full-width qwen2-0.5b bf16 train step at 7b's shape, donated
+   against functional from the same state and batch: params, f32 master,
+   m, v, step and metrics bit for bit, the donated step's leaves in its
+   arguments' storages.  Every cut is printed;
 8. distribution and the example twins (about 40-90 s): 8a runs the twins
    that touch the device in this process at their reference's reduced
    sizes, each also on the CPU: ``torch_trace_stencil`` (K1 once per slab,
@@ -236,9 +240,9 @@ failure:
    ``torch.distributed``); then, on one NCCL rank: 8b one full-width
    qwen2-0.5b bf16 train step at phase 7b's shape with DTensor parameters
    on a (1, 1) ``make_debug_mesh`` (placed by ``param_shardings``, the
-   optimizer state by ``opt_state_shardings``) against the same step
-   without rules: loss and every leaf bit for bit (else held to the
-   reference check's limits, loss rtol 2e-5 and leaves atol 2e-4, and the
+   optimizer state by ``opt_state_shardings``), donated, against the
+   same step without rules, functional: loss and every leaf bit for bit
+   (else held to the reference check's limits, loss rtol 2e-5 and leaves atol 2e-4, and the
    gap printed), K3's forward and backward launches equal, no plain
    attention call, and ms a step of both; 8c ``seq_parallel_attention``'s
    per-shard piece at qwen2-0.5b's heads (14/2 x 64, bf16), T 4096 as four
@@ -1727,22 +1731,24 @@ ARCH_F32_LAYERS = {RWKV: 2, GRIFFIN: 3}
 ARCH_GRAD_LIMITS = {(RWKV, "bfloat16"): (None, 2e-3), (RWKV, "float32"): (3e-3, 1e-5),
                     (GRIFFIN, "bfloat16"): (0.05, 1e-3), (GRIFFIN, "float32"): (1e-4, 1e-5)}
 RWKV_BF16_L2 = 0.5
-# 7h: the trainer at full width, each config's own microbatches.  Cut in
-# depth: the port's optimizer, as the reference's, is functional, so at the
-# update the old and the new params, f32 master and moments (14 B a param
-# each) stand beside the f32 accumulated gradient: 32 B a param at the
-# peak.  rwkv6-3b whole (3.09e9 params, 99 GB at that peak) ran out of the
-# 80 GB card in its first update (H100 80GB HBM3); at 16 of 32 layers it
-# is 1.70e9 (54 GB).  recurrentgemma-9b at 4 of 38 layers is 1.84e9 (59
-# GB; 9 layers would be 2.83e9, 90 GB).  rwkv6-3b runs 8 layers, a cut that
-# makes room for phase 9c (at 16 layers a step took 2179 ms, PERF.md §5)
-ARCH_TRAIN = {RWKV: dict(layers=8, batch=8, steps=10),
+# 7h: the trainer at full width, each config's own microbatches.  The
+# trainer's step is donated (as the reference's jitted step): params (2 B a
+# param), f32 master, m and v (12 B) and the f32 accumulated gradient (4 B),
+# with the last microbatch's bf16 gradient (2 B) beside them, 20 B a param
+# at the peak.  With the functional step the old and the new state stood
+# side by side, 32 B a param: rwkv6-3b whole (3.09e9 params, 99 GB) ran out
+# of the 80 GB card in its first update (H100 80GB HBM3) and ran cut to 8
+# of 32 layers.  Donated it needs about 62 GB, so it runs whole;
+# ARCH_TRAIN_PEAK is its gate.  recurrentgemma-9b whole is 8.58e9 params,
+# 172 GB at 20 B: it stays at 4 of 38 layers (1.84e9).
+ARCH_TRAIN = {RWKV: dict(layers=None, batch=8, steps=10),
               GRIFFIN: dict(layers=4, batch=4, steps=10)}
+ARCH_TRAIN_PEAK = {RWKV: 72e9}
 ARCH_TRAIN_SEQ = 1024
 # K4's backward device ms in one profiled rwkv6-3b step of 7h with its
-# first design, one block per 32 rows of a head walking all of time
-# (PERF.md §5-§6; H100 80GB HBM3, 700 W)
-K4_BWD_MS_A_STEP_FIRST = 98.65
+# first design, one block per 32 rows of a head walking all of time, when
+# 7h ran 16 layers (PERF.md §5-§6; H100 80GB HBM3, 700 W)
+K4_BWD_MS_A_STEP_FIRST, K4_BWD_FIRST_LAYERS = 98.65, 16
 # 7i: F1's own command on the reduced configs
 CLI_STEPS = 20
 
@@ -2113,7 +2119,7 @@ def arch_phase(dev, card) -> dict:
         steps, bsz = spec["steps"], spec["batch"]
         print(f"{arch} trainer: {tcfg.num_layers} of {base.num_layers} layers at full width"
               + (" (whole)" if spec["layers"] is None else " (a cut: whole, its params, f32 "
-                 "master and moments, old and new at the update, do not fit one 80 GB card)")
+                 "master, moments and accumulated gradient do not fit one 80 GB card)")
               + f", {steps} steps of {bsz} x {ARCH_TRAIN_SEQ}, {tcfg.microbatches} "
               f"microbatches, AdamW lr 3e-3 with 1 warmup step")
         free_device_memory()
@@ -2159,6 +2165,9 @@ def arch_phase(dev, card) -> dict:
             fail(f"{arch} trainer: launches {counts}, want {want}")
         if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
             fail(f"{arch} trainer: the loss did not fall: {losses}")
+        if peak > ARCH_TRAIN_PEAK.get(arch, float("inf")):
+            fail(f"{arch} trainer: peak device memory {peak / 1e9:.2f} GB, above "
+                 f"{ARCH_TRAIN_PEAK[arch] / 1e9:.0f} GB")
         from torch.profiler import ProfilerActivity, profile
         pbatch = {name: torch.as_tensor(x, device=dev) for name, x in next(
             make_batch_iterator(tcfg.vocab_size, ARCH_TRAIN_SEQ, bsz, seed=1)).items()}
@@ -2183,8 +2192,11 @@ def arch_phase(dev, card) -> dict:
               f"idle share {1 - busy / prof_ms:.4f}; kernel device ms a step: " + ", ".join(
                   f"{f} {x:.2f}" for f, x in by_family.items()))
         if arch == RWKV:
-            print(f"{arch} K4 backward device ms a step: {by_family.get('K4 backward', 0.0):.2f} "
-                  f"(the first design: {K4_BWD_MS_A_STEP_FIRST}) [{card}]")
+            k4_ms = by_family.get("K4 backward", 0.0)
+            print(f"{arch} K4 backward device ms a step: {k4_ms:.2f}, "
+                  f"{k4_ms / tcfg.num_layers:.3f} a layer (the first design: "
+                  f"{K4_BWD_MS_A_STEP_FIRST} at {K4_BWD_FIRST_LAYERS} layers, "
+                  f"{K4_BWD_MS_A_STEP_FIRST / K4_BWD_FIRST_LAYERS:.3f} a layer) [{card}]")
         print("device time by function over the profiled step:")
         print("\n".join(top_kernels(spans, 10)))
         out["trainer"] = {
@@ -2214,6 +2226,80 @@ def arch_phase(dev, card) -> dict:
                  f"\n{proc.stderr[-4000:]}")
         out["cli"] = {"command": " ".join(cmd[1:]), "lines": lines[-2:]}
     return results
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bits as integers of its width (so -0.0 and 0.0 differ)."""
+    return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[x.element_size()])
+
+
+def donation_check(dev, card) -> dict:
+    """Phase 7j: one full-width qwen2-0.5b bf16 train step at phase 7b's
+    shape, donated (``make_train_step(donate=True)``, as ``Trainer`` runs
+    it) against the functional step from the same state and batch: params,
+    f32 master, m, v, step and every metric bit for bit, and the donated
+    step's leaves in its arguments' storages."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    stamp("7j")
+    cfg = get_config(QWEN)
+    model = build_model(cfg, max_pos=TRAIN_SEQ, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    batch = {name: torch.as_tensor(x, device=dev) for name, x in next(
+        make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).items()}
+    # the trainers' learning rate at its first step, so every leaf moves
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    copy = _tree.tree_map(torch.clone, params)
+    donated_args = (copy, init_opt_state(copy))
+    storages = [x.untyped_storage().data_ptr() for x in _tree.leaves(donated_args)]
+    out, read = {}, {}
+    for name, donate, args in (("functional", False, (params, init_opt_state(params))),
+                               ("donated", True, donated_args)):
+        step = make_train_step(model, opt_cfg, donate=donate)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out[name] = step(*args, batch)
+        torch.cuda.synchronize()
+        read[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_bytes": torch.cuda.max_memory_allocated() - base}
+    (fp, fo, fm), (dp, do, dm) = out["functional"], out["donated"]
+    same_storages = [x.untyped_storage().data_ptr() for x in _tree.leaves((dp, do))] == storages
+    pairs = list(zip(_tree.flatten_with_path({"params": dp, "opt": do}),
+                     _tree.leaves({"params": fp, "opt": fo})))
+    unequal = {path: int((bits(a) != bits(b)).sum()) for (path, a), b in pairs}
+    n_unequal = sum(unequal.values())
+    metrics_equal = sorted(fm) == sorted(dm) and all(
+        torch.equal(bits(torch.as_tensor(fm[k], device=dev)),
+                    bits(torch.as_tensor(dm[k], device=dev))) for k in fm)
+    moved = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(_tree.leaves(dp),
+                                                                _tree.leaves(params)))
+    n_params = sum(x.numel() for x in _tree.leaves(params))
+    print(f"7j: {QWEN} bf16 train step, full width, {TRAIN_BATCH} x {TRAIN_SEQ}: donated "
+          f"against functional from the same state: {n_unequal} unequal elements in "
+          f"{len(pairs)} params and optimizer tensors, metrics "
+          f"{'equal' if metrics_equal else 'DIFFERENT'} (loss {float(dm['loss']):.6f}), "
+          f"the donated leaves {'in' if same_storages else 'NOT in'} their arguments' "
+          f"storages, {moved} of {n_params} params moved by the step; ms and peak bytes "
+          f"beyond the arguments: functional {read['functional']['ms']:.1f} ms "
+          f"{read['functional']['peak_bytes']} B, donated {read['donated']['ms']:.1f} ms "
+          f"{read['donated']['peak_bytes']} B [{card}]")
+    if n_unequal or not metrics_equal or not same_storages or not moved:
+        fail(f"7j: the donated step differs from the functional one "
+             f"({ {k: v for k, v in unequal.items() if v} }, metrics equal {metrics_equal}, "
+             f"storages kept {same_storages}, params moved {moved})")
+    del out, fp, fo, dp, do, params, copy, donated_args
+    free_device_memory()
+    return {"unequal_elements": n_unequal, "tensors": len(pairs),
+            "metrics_equal": metrics_equal, "same_storages": same_storages,
+            "params_moved": moved, **read}
 
 
 # the reduced sizes of the example twins (their reference's own) and phase
@@ -2310,8 +2396,9 @@ def distribution_phase(dev, card, counts, zero_counts) -> dict:
 
 def _sharded_step(dev, card, counts, zero_counts) -> dict:
     """One full-width qwen2-0.5b bf16 train step at phase 7b's shape, with
-    DTensor parameters on a (1, 1) mesh, against the same step without
-    rules: the loss and every leaf bit for bit, K3's launches equal."""
+    DTensor parameters on a (1, 1) mesh, donated, against the same step
+    without rules, functional: the loss and every leaf bit for bit, K3's
+    launches equal."""
     from repro_torch import _tree
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_iterator
@@ -2329,6 +2416,7 @@ def _sharded_step(dev, card, counts, zero_counts) -> dict:
     batch = {name: torch.as_tensor(x, device=dev) for name, x in next(
         make_batch_iterator(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)).items()}
     step = make_train_step(model, AdamWConfig())
+    donated = make_train_step(model, AdamWConfig(), donate=True)
     mesh = make_debug_mesh(1, 1)
     rules = make_rules(mesh, fsdp=False, shard_heads=False)
 
@@ -2337,13 +2425,15 @@ def _sharded_step(dev, card, counts, zero_counts) -> dict:
 
     with use_rules(rules):
         p_sh = param_shardings(cfg, params, rules)
-        params_s = place(params, p_sh, rules)
+        # a copy: the donated step writes it (and the timed steps go on
+        # training it)
+        params_s = place(_tree.tree_map(torch.clone, params), p_sh, rules)
         opt_s = place(init_opt_state(params_s), opt_state_shardings(p_sh, rules, params), rules)
         batch_s = {k: place(v, rules.sharding("batch", None), rules) for k, v in batch.items()}
 
     def sharded_step():
         with use_rules(rules):
-            return step(params_s, opt_s, batch_s)
+            return donated(params_s, opt_s, batch_s)
 
     res = {}
     got = {}
@@ -2388,6 +2478,7 @@ def _sharded_step(dev, card, counts, zero_counts) -> dict:
     print(f"{QWEN} bf16 train step, full width, {TRAIN_BATCH} x {TRAIN_SEQ}, DTensor "
           f"parameters on a (1, 1) mesh of 1 NCCL rank against the same step without "
           f"rules: loss {res['loss_sharded']:.6f} vs {res['loss_plain']:.6f}; "
+          f"donated, against functional: "
           f"{res['unequal_leaves']} leaves ({res['unequal_elements']} elements) unequal, "
           f"worst {res['worst_leaf']} {gap:.3e}; K3 launches sharded "
           f"{res['sharded']['k3_forward']}/{res['sharded']['k3_backward']}, plain "
@@ -4010,6 +4101,7 @@ def main() -> None:
     training, k3_backward = train_phase(dev, card)
     recurrent = recurrent_backward_phase(dev, card)
     training["archs"] = arch_phase(dev, card)
+    training["donation"] = donation_check(dev, card)
     training["recurrent_backward"] = {k: recurrent[k] for k in (
         "wkv6_backward", "rglru_scan_backward")}
 

@@ -23,12 +23,15 @@ A cell's keys are the reference's; in the port they mean:
 * ``memory``, per card (rank 0's shards): ``argument_bytes_per_chip`` the
   step's arguments; ``output_bytes_per_chip`` its results;
   ``alias_bytes_per_chip`` the results that are argument storages the
-  step updated in place (the caches of prefill and decode; 0 for the
-  train step, which returns new tensors: eager PyTorch has no donation);
-  ``temp_bytes_per_chip`` the peak of the live bytes beyond arguments and
-  fresh results; ``peak_estimate_per_chip`` argument + output + temp -
-  alias, which is the counted peak.  The train step's peak holds the
-  gradient accumulator and a microbatch's activations;
+  step updated in place (the caches of prefill and decode; the
+  parameters and the optimizer state of the train step, which is
+  counted donated, ``make_train_step(donate=True)``, as the reference
+  compiles it with ``donate_argnums=(0, 1)``: its outputs beyond them are
+  the metrics' scalars); ``temp_bytes_per_chip`` the peak of the live
+  bytes beyond arguments and fresh results; ``peak_estimate_per_chip``
+  argument + output + temp - alias, which is the counted peak.  The train
+  step's peak holds the gradient accumulator and a microbatch's
+  activations;
 * ``roofline``: ``analysis.Roofline.as_dict()`` of the counted cost;
 * ``model_flops_global`` and ``useful_flops_ratio``: 6 N D (train) or
   2 N D (inference) over the counted FLOPs of all ranks.
@@ -36,9 +39,9 @@ A cell's keys are the reference's; in the port they mean:
 A train step of k > 2 microbatches runs its first two, and the second's
 cost counts k - 2 more times (``_two_microbatches_only``): the
 microbatches have one shape, and from the second on each runs the same
-ops (the first also moves the zero accumulator to the gradients'
-placements), so this is the reference's trip-count multiplier of its
-accumulation loop, exact against the whole count (tests).  Run whole,
+ops (the first may also meet DTensor's caches cold, whose misses run
+ops of their own), so this is the reference's trip-count multiplier of
+its accumulation loop, exact against the whole count (tests).  Run whole,
 llama-3.2-vision-90b's train cell (100 layers, 16 microbatches) took more
 than five minutes on the CPU.  The memory peak is the two microbatches',
 with the gradient accumulator live.
@@ -163,8 +166,7 @@ def _placed(tree, shardings, mesh):
 def _two_microbatches_only(counter: OpCounter, k: int):
     """Within: a train step runs only the first two of its ``k`` > 2
     microbatches.  On exit the second's cost is added ``k - 2`` more times:
-    the first also moves the zero accumulator to the gradients' placements
-    (under a mesh), so the second is what each further microbatch costs.
+    the second is what each further microbatch costs.
     This rebinds ``train_step._split_microbatches`` for the process, so one
     cell is counted at a time."""
     split = train_step_module._split_microbatches
@@ -220,7 +222,7 @@ def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, whole: bool = False)
             opt = _placed(init_opt_state(params_abs), o_sh, mesh)
             batch_abs = model.input_specs(shape)
             batch = _placed(batch_abs, batch_shardings(batch_abs, rules), mesh)
-            step, args = make_train_step(model), (params, opt, batch)
+            step, args = make_train_step(model, donate=True), (params, opt, batch)
         elif shape.kind == "prefill":
             cache_abs = model.cache_specs(shape)
             caches = _placed(cache_abs, cache_shardings(cache_abs, rules), mesh)

@@ -13,6 +13,12 @@ global setting: the hand-written backward kernels (K3, K4, K5) use no
 float atomics, and ``chip_smoke.py`` phase 7e holds the full-width
 qwen2-0.5b trainer to it without ``torch.use_deterministic_algorithms`` or
 ``CUBLAS_WORKSPACE_CONFIG``.
+
+The step is donated (``make_train_step(donate=True)``), as the reference
+jits it with ``donate_argnums=(0, 1)``: the parameters and the optimizer
+state are updated in place, so only one copy of them is ever live.  A
+checkpoint is staged to the host before ``save`` returns, so a later step
+cannot change it.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ class Trainer:
         self.cfg = loop_cfg
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=loop_cfg.total_steps)
         self.log = log_fn
-        self.step_fn = make_train_step(model, self.opt_cfg)
+        self.step_fn = make_train_step(model, self.opt_cfg, donate=True)
         self.ckpt = (CheckpointManager(loop_cfg.checkpoint_dir,
                                        keep=loop_cfg.keep_checkpoints)
                      if loop_cfg.checkpoint_dir else None)

@@ -6,10 +6,22 @@ tensor, all on the parameters' device.  The update is the reference's,
 operation for operation and in its order (``adamw_update``), as plain
 per-leaf tensor code: an optimizer step reads and writes each state byte
 once, so it is bound by memory and needs no kernel of its own.  Like the
-reference it is functional: it returns new tensors and changes none it
-was given.  The leaves may be DTensors (a sharded train step, under
+reference it is functional by default: it returns new tensors and changes
+none it was given.  Given ``params`` it is donated (divergence P21, the
+counterpart of the reference's ``donate_argnums=(0, 1)``): it writes the
+new master, m, v and step into the state's own leaves and the new
+parameters into ``params``' leaves, and returns those trees.  Both modes
+run one body of separately rounded ops (``mul``, ``add`` of a product
+already computed, ``div``, ``sqrt``, ``sub``; on the temporaries in
+place, which rounds as the op does), so they give the same bits;
+a fused form (``add_(..., alpha=)``, ``addcmul_``, ``addcdiv_``, ``lerp_``,
+the ``_foreach`` kernels) contracts a multiply-add and would not.  The
+leaves may be DTensors (a sharded train step, under
 ``distributed.sharding.use_rules``): every operation here then runs
-sharded, with the state's placements.
+sharded.  An in-place op keeps its destination's placements and DTensor
+redistributes the source, so the donated update leaves the parameters on
+``param_shardings`` and the state on ``opt_state_shardings``, as the
+reference's ``out_shardings`` do.
 
 ``opt_state_shardings`` is the reference's ZeRO-1 layout: the state's
 placements are the parameters', plus the "zero" logical axis (the data
@@ -73,10 +85,18 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 def adamw_update(c: AdamWConfig, grads: Params, opt_state: dict,
-                 param_dtype=torch.bfloat16):
-    """Returns (new_params, new_opt_state, metrics)."""
+                 param_dtype=torch.bfloat16, *, params: Params = None):
+    """Returns (new_params, new_opt_state, metrics).  With ``params``
+    given, the update is donated: ``opt_state``'s leaves and ``params``'
+    leaves take the new values in place (each parameter by ``copy_`` from
+    its master, which rounds as ``.to(param_dtype)`` does), and the two
+    trees themselves are returned."""
+    donate = params is not None
+    # the first op of each update makes the new tensor, or writes the old
+    mul = torch.Tensor.mul_ if donate else torch.Tensor.mul
+    sub = torch.Tensor.sub_ if donate else torch.Tensor.sub
     with torch.no_grad():
-        step = opt_state["step"] + 1
+        step = opt_state["step"].add_(1) if donate else opt_state["step"] + 1
         stepf = step.float()
         lr = schedule(c, stepf)
 
@@ -90,23 +110,30 @@ def adamw_update(c: AdamWConfig, grads: Params, opt_state: dict,
 
         def upd(g, m, v, master):
             g = g.float() * scale
-            m = c.b1 * m + (1 - c.b1) * g
-            v = c.b2 * v + (1 - c.b2) * torch.square(g)
-            mhat = m / b1c
-            vhat = v / b2c
-            delta = mhat / (torch.sqrt(vhat) + c.eps) + c.weight_decay * master
-            master = master - lr * delta
+            m = mul(m, c.b1).add_((1 - c.b1) * g)
+            v = mul(v, c.b2).add_(torch.square(g).mul_(1 - c.b2))
+            del g
+            # mhat / (sqrt(vhat) + eps) + wd * master, then times lr: each
+            # temporary written over by the next op, at most two of them live
+            delta = (m / b1c).div_((v / b2c).sqrt_().add_(c.eps))
+            delta.add_(c.weight_decay * master)
+            master = sub(master, delta.mul_(lr))
             return m, v, master
 
         out = [upd(g, m, v, w) for g, m, v, w in zip(
             leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"]),
             leaves(opt_state["master"]))]
+        metrics = {"grad_norm": gnorm, "lr": lr}
+        if donate:
+            for p, (_, _, w) in zip(leaves(params), out):
+                p.copy_(w)
+            return params, opt_state, metrics
         new_m = unflatten(grads, [o[0] for o in out])
         new_v = unflatten(grads, [o[1] for o in out])
         new_master = unflatten(grads, [o[2] for o in out])
         new_params = tree_map(lambda w: w.to(param_dtype), new_master)
     new_state = {"master": new_master, "m": new_m, "v": new_v, "step": step}
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+    return new_params, new_state, metrics
 
 
 def opt_state_shardings(param_shardings_tree, rules, param_tree):

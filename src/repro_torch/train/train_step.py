@@ -12,6 +12,20 @@ last microbatch's.  On the card, attention's, the WKV6 recurrence's and
 the RG-LRU scan's gradients run in K3's, K4's and K5's backward kernels
 (``FlashAttentionFn``, ``WKV6Fn``, ``RGLRUScanFn`` in ``kernels``), so
 every configuration trains there.
+
+``donate=True`` is the counterpart of the reference's jitted
+``donate_argnums=(0, 1)`` (divergence P21): the step writes the new
+parameters and optimizer state into the leaves it was given and returns
+those same trees (``optimizer.adamw_update(..., params=)``), so the old
+and the new state are never live at once.  It gives the functional step's
+bits.  Under DTensor the in-place writes keep each leaf's placements, so
+the parameters come back on ``param_shardings`` and the state on
+``opt_state_shardings``, as the reference's ``out_shardings`` put them.
+The ``Trainer`` and the dry run's train cell donate, as the reference's
+do; ``donate=False`` changes nothing it was given.  Either way the
+microbatches' gradients are summed in place into one fp32 accumulator
+placed like the parameters (the reference's scan carry), in the
+reference's order.
 """
 from __future__ import annotations
 
@@ -37,8 +51,11 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
     return [{name: xs[j] for name, xs in parts.items()} for j in range(k)]
 
 
-def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics)."""
+def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None, *,
+                    donate: bool = False):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics); with ``donate`` the returned trees are the arguments,
+    updated in place."""
     cfg = model.cfg
     opt_cfg = opt_cfg or AdamWConfig()
     pdtype = _DTYPES[cfg.dtype]
@@ -64,14 +81,17 @@ def make_train_step(model: Model, opt_cfg: Optional[AdamWConfig] = None):
         total = torch.zeros((), dtype=torch.float32, device=acc[0].device)
         for mb in _split_microbatches(batch, k):
             loss, metrics, grads = value_and_grad(params, mb)
-            acc = [a + g.float() / k for a, g in zip(acc, grads)]
+            for a, g in zip(acc, grads):
+                a.add_(g.float() / k)
+            del grads           # not live through the next backward
             total = total + loss / k
         return total, metrics, unflatten(params, acc)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grads_of(params, batch)
         new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, grads, opt_state, param_dtype=pdtype)
+            opt_cfg, grads, opt_state, param_dtype=pdtype,
+            params=params if donate else None)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return new_params, new_opt, metrics
 

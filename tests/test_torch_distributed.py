@@ -13,7 +13,8 @@ and killed on overrun.  Inputs come from numpy seeds and the JAX package's
 
 Limits are the reference check's: the sharded train step's loss to rtol
 2e-5 and every leaf to atol 2e-4 (against the JAX single-device step and
-against the port's own unsharded step); the pipeline to 1e-5; "none" to
+against the port's own unsharded step; the donated step's second step
+against two JAX steps, its placements exactly); the pipeline to 1e-5; "none" to
 rtol 1e-6, "bf16" 2e-2, "int8" 8e-2/2.0 against numpy, and "int8" against
 the JAX package's ``compressed_psum`` bit for bit (result and error state);
 ``lse_combine`` against the full softmax to 1e-5; ``seq_parallel_attention``
@@ -71,10 +72,14 @@ def _jax_main(out):
     model = build_model(cfg, max_pos=64)
     params = model.init_params(jax.random.key(0))
     batch = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in inp["batch"].items()}
-    p1, _, m1 = jax.jit(make_train_step(model, AdamWConfig(lr=1e-2)))(
-        params, init_opt_state(params), batch)
+    step = jax.jit(make_train_step(model, AdamWConfig(lr=1e-2)))
+    p1, o1, m1 = step(params, init_opt_state(params), batch)
     np.savez(out / "jax_step.npz", loss=np.asarray(m1["loss"]),
              **{f"leaf{i}": np.asarray(x, np.float32) for i, x in enumerate(jax.tree.leaves(p1))})
+    # and a second step, the same batch again
+    p2, _, m2 = step(p1, o1, batch)
+    np.savez(out / "jax_step2.npz", loss=np.asarray(m2["loss"]),
+             **{f"leaf{i}": np.asarray(x, np.float32) for i, x in enumerate(jax.tree.leaves(p2))})
 
     # compressed_psum on 8 devices, the inputs the ranks take
     mesh8 = jax.make_mesh((WORLD,), ("d",), axis_types=(jax.sharding.AxisType.Auto,))
@@ -265,7 +270,8 @@ def world(tmp_path_factory):
         ranks=[torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(WORLD)],
         inputs=torch.load(d / "inputs.pt", weights_only=False),
         jax=json.loads((d / "jax.json").read_text()),
-        step=dict(np.load(d / "jax_step.npz")), psum=dict(np.load(d / "jax_psum.npz")),
+        step=dict(np.load(d / "jax_step.npz")), step2=dict(np.load(d / "jax_step2.npz")),
+        psum=dict(np.load(d / "jax_psum.npz")),
         fakepg=json.loads((d / "fakepg.json").read_text()))
 
 
@@ -337,6 +343,39 @@ class TestShardedTrain:
         assert "(Replicate(), Shard(dim=0))" in r0["train_param_placements"]
         assert any("Shard(dim=0), Shard(dim=1)" in p or "Shard(dim=1), Shard(dim=0)" in p
                    for p in r0["train_opt_placements"])
+
+    @pytest.mark.parametrize("tag", ["", "fsdp_heads_"], ids=["reference_rules", "fsdp_heads"])
+    def test_donated_step_keeps_the_placements(self, world, tag):
+        """F11: after the donated step every parameter is on
+        ``param_shardings``' placements and master, m, v and step on
+        ``opt_state_shardings``', as the reference's ``out_shardings`` put
+        them; no partial sum is left."""
+        for r in world.ranks:
+            want, got = r[f"donate_{tag}want"], r[f"donate_{tag}got"]
+            assert len(got["params"]) == len(want["params"]) > 10
+            assert got == want
+            assert not any("Partial" in p for pls in got.values() for p in pls)
+        assert any("Shard" in p for p in world.ranks[0][f"donate_{tag}want"]["m"])
+
+    @pytest.mark.parametrize("tag", ["", "fsdp_heads_"], ids=["reference_rules", "fsdp_heads"])
+    def test_second_donated_step_matches_two_jax_steps(self, world, tag):
+        """A second sharded step, from the placements the first handed
+        back, against two single-device steps of the JAX package (the same
+        batch twice), at the reference check's limits."""
+        from repro_torch.configs import get_config, reduce_config
+        from repro_torch.models.convert import params_to_jax
+        import jax
+
+        r0 = world.ranks[0]
+        np.testing.assert_allclose(float(r0[f"donate_{tag}loss2"]),
+                                   float(world.step2["loss"]), rtol=2e-5)
+        cfg = reduce_config(get_config("qwen2-0.5b"))
+        got = jax.tree.leaves(params_to_jax(
+            _unflat(world.inputs["params"], r0[f"donate_{tag}leaves2"]), cfg))
+        want = [world.step2[f"leaf{i}"] for i in range(len(got))]
+        assert len(got) == len(want) > 10
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(np.asarray(a, np.float32), b, atol=2e-4)
 
     @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
     def test_recurrent_forward_on_local_shards(self, world, arch):

@@ -255,7 +255,8 @@ def _local_bytes(shape, spec, sizes, itemsize):
 def test_production_cell_argument_bytes(sides):
     """qwen2-0.5b|train_4k|single: ``ok``, and the argument bytes a card are
     the local shards of the parameters, the optimizer state and the batch,
-    counted here from the specs."""
+    counted here from the specs; the aliased bytes are the parameters and
+    the optimizer state (the step is donated)."""
     from repro_torch._tree import leaves
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import spec_of
@@ -282,10 +283,14 @@ def test_production_cell_argument_bytes(sides):
         return sum(_local_bytes(x.shape, spec_of(mesh, pl, x.ndim), size,
                                 itemsize or x.element_size())
                    for x, pl in zip(leaves(tree), _placement_leaves(tree, sh)))
-    want = (tree_bytes(params, p_sh) + 3 * tree_bytes(params, o_sh["master"], 4)
-            + 4 + tree_bytes(batch, batch_shardings(batch, rules)))
+    donated = tree_bytes(params, p_sh) + 3 * tree_bytes(params, o_sh["master"], 4) + 4
+    want = donated + tree_bytes(batch, batch_shardings(batch, rules))
     assert got["memory"]["argument_bytes_per_chip"] == want
-    assert got["memory"]["alias_bytes_per_chip"] == 0
+    # the step is donated, as the reference's: its params and optimizer
+    # state come back in their own storages, and its only other outputs are
+    # the metrics' four f32 scalars (loss, ce, grad_norm, lr)
+    assert got["memory"]["alias_bytes_per_chip"] == donated
+    assert got["memory"]["output_bytes_per_chip"] == donated + 4 * 4
     mem = got["memory"]
     assert mem["peak_estimate_per_chip"] == (mem["argument_bytes_per_chip"]
                                              + mem["output_bytes_per_chip"]
@@ -373,7 +378,8 @@ def test_dryrun_results_present_and_clean():
     multi-pod train cells with no errors (the twin of
     ``test_dryrun_results_present_and_clean``), and every train cell whose
     arguments fit a card of 80 GiB has its counted peak under 80 GiB (F9:
-    no rank holds its rows' logits over the whole vocab)."""
+    no rank holds its rows' logits over the whole vocab); every train
+    cell counts the donated step (F11)."""
     d = json.loads((ROOT / "experiments" / "torch_dryrun.json").read_text())
     single = {k: v for k, v in d.items() if k.endswith("|single")}
     assert len(single) == 40
@@ -394,6 +400,11 @@ def test_dryrun_results_present_and_clean():
     over = {k: m["peak_estimate_per_chip"] / 2 ** 30 for k, m in train.items()
             if m["argument_bytes_per_chip"] < card and m["peak_estimate_per_chip"] >= card}
     assert not over, over
+    # the train step is counted donated: its params and optimizer state are
+    # aliased, and beyond them it returns only the metrics' scalars
+    for k, m in train.items():
+        assert 0 < m["alias_bytes_per_chip"] < m["argument_bytes_per_chip"], k
+        assert 0 < m["output_bytes_per_chip"] - m["alias_bytes_per_chip"] <= 64, k
 
 
 if __name__ == "__main__":

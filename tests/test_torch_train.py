@@ -21,7 +21,10 @@ steps.  On the CPU the port's attention is the plain path.  Tolerances:
   amplifies the gradient's relative error, which is up to 1e-5 / 1e-3 at
   the mask's edge; against |value| alone, bk of layer 0 (0.0015 after 3
   steps, 1.8e-7 apart) took 1.2x that limit;
-* ``schedule`` and ``adamw_update`` alone: 1e-6 relative.
+* ``schedule`` and ``adamw_update`` alone: 1e-6 relative;
+* the donated step (``make_train_step(donate=True)``) against the
+  functional one: bit for bit; the ``Trainer``, which donates, against the
+  reference's step jitted with ``donate_argnums=(0, 1)``: the limits above.
 
 One jitted JAX step and one reference run per module fixture keep the
 file fast.
@@ -93,6 +96,20 @@ def _port_tree(tree, cfg):
     return params_from_jax(jax.tree.map(np.asarray, tree), cfg, "cpu")
 
 
+def _assert_three_steps_close(got_params, want_params, grads):
+    """The parameters after three steps, by the limits in the module's
+    docstring (``grads``: the reference's step-1 gradient)."""
+    grads = dict(_tree.flatten_with_path(grads))
+    for (path, want), got in zip(_tree.flatten_with_path(want_params),
+                                 _tree.leaves(got_params)):
+        g1 = grads[path].abs()
+        big = g1 > 1e-3 * g1.max()
+        err = (got - want).abs()
+        scale = torch.clamp(want.abs(), min=2 * LR * STEPS)
+        assert bool((err[big] <= 1e-4 * scale[big]).all()), path
+        assert float(torch.cat([err[~big], err.new_zeros(1)]).max()) <= 2 * LR * STEPS, path
+
+
 @pytest.fixture(scope="module")
 def run():
     """Three steps of each package's train step from the same params and
@@ -139,15 +156,7 @@ class TestTrainStep:
             assert abs(float(p["loss"]) - float(j["loss"])) <= 1e-4
 
     def test_params_after_three_steps(self, run):
-        grads = dict(_tree.flatten_with_path(run["grads"]))
-        for (path, want), got in zip(_tree.flatten_with_path(run["jparams"]),
-                                     _tree.leaves(run["params"])):
-            g1 = grads[path].abs()
-            big = g1 > 1e-3 * g1.max()
-            err = (got - want).abs()
-            scale = torch.clamp(want.abs(), min=2 * LR * STEPS)
-            assert bool((err[big] <= 1e-4 * scale[big]).all()), path
-            assert float(torch.cat([err[~big], err.new_zeros(1)]).max()) <= 2 * LR * STEPS, path
+        _assert_three_steps_close(run["params"], run["jparams"], run["grads"])
 
     def test_opt_state_after_three_steps(self, run):
         cfg = run["cfg"]
@@ -230,6 +239,134 @@ class TestOptimizer:
             assert hasattr(optimizer, name) and hasattr(ref_opt, name)
         assert dataclasses.asdict(optimizer.AdamWConfig()) == \
             dataclasses.asdict(ref_opt.AdamWConfig())
+
+
+def _clone(tree):
+    return _tree.tree_map(lambda t: t.clone(), tree)
+
+
+def _donation_models(arch, microbatches, dtype=None):
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), microbatches=microbatches)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg, max_pos=64, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    return cfg, model, params
+
+
+class TestDonation:
+    """``make_train_step(donate=True)`` (P21, the reference's
+    ``donate_argnums=(0, 1)``): the new state is written into the
+    arguments' leaves, with the functional step's bits."""
+
+    @pytest.mark.parametrize("arch,microbatches,dtype", [
+        (ARCH, 1, None), (ARCH, 2, None), ("rwkv6-3b", 1, None), ("rwkv6-3b", 2, None),
+        ("recurrentgemma-9b", 1, None), ("recurrentgemma-9b", 2, None),
+        (ARCH, 2, "bfloat16")])
+    def test_donated_equals_functional_bit_for_bit(self, arch, microbatches, dtype):
+        """Three steps from the same state and batches (2 x 32 tokens):
+        params, master, m, v, step and every metric equal bit for bit (bf16: the parameters'
+        ``copy_`` from the master rounds as ``.to`` does)."""
+        cfg, model, params = _donation_models(arch, microbatches, dtype)
+        _, opt = _opt_cfgs()
+        functional = train_step.make_train_step(model, opt)
+        donated = train_step.make_train_step(model, opt, donate=True)
+        fp, fo = _clone(params), optimizer.init_opt_state(params)
+        dp, do = _clone(params), optimizer.init_opt_state(params)
+        for b in _batches(cfg, STEPS, batch=2):
+            fp, fo, fm = functional(fp, fo, _tb(b))
+            dp2, do2, dm = donated(dp, do, _tb(b))
+            assert dp2 is dp and do2 is do
+            assert sorted(fm) == sorted(dm)
+            for name in fm:
+                assert torch.equal(torch.as_tensor(fm[name]), torch.as_tensor(dm[name])), name
+        got, want = _tree.leaves({"p": dp, "o": do}), _tree.leaves({"p": fp, "o": fo})
+        assert len(got) == len(want) > 10
+        for (path, a), b in zip(_tree.flatten_with_path({"p": dp, "o": do}), want):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+        assert int(do["step"]) == STEPS
+
+    def test_donated_step_returns_its_arguments_storages(self):
+        cfg, model, params = _donation_models(ARCH, 2, "bfloat16")
+        opt_state = optimizer.init_opt_state(params)
+        before = [x.untyped_storage().data_ptr()
+                  for x in _tree.leaves({"p": params, "o": opt_state})]
+        first = _tree.leaves(params)[0].clone()
+        step = train_step.make_train_step(model, _opt_cfgs()[1], donate=True)
+        p, o, _ = step(params, opt_state, _tb(_batches(cfg, 1)[0]))
+        after = [x.untyped_storage().data_ptr() for x in _tree.leaves({"p": p, "o": o})]
+        assert after == before
+        assert not torch.equal(_tree.leaves(p)[0], first)      # written, in place
+
+    def test_functional_step_leaves_its_arguments_unchanged(self):
+        cfg, model, params = _donation_models(ARCH, 2, "bfloat16")
+        opt_state = optimizer.init_opt_state(params)
+        args = {"p": params, "o": opt_state}
+        saved = _clone(args)
+        step = train_step.make_train_step(model, _opt_cfgs()[1])
+        p, o, _ = step(params, opt_state, _tb(_batches(cfg, 1)[0]))
+        for (path, a), b in zip(_tree.flatten_with_path(args), _tree.leaves(saved)):
+            assert torch.equal(a, b), path
+        ptrs = {x.untyped_storage().data_ptr() for x in _tree.leaves(args)}
+        assert not ptrs & {x.untyped_storage().data_ptr()
+                           for x in _tree.leaves({"p": p, "o": o})}
+
+    def test_trainer_matches_the_jitted_donated_reference(self, run):
+        """``Trainer`` (which donates) for three steps from the reference's
+        initial parameters against ``jax.jit(make_train_step(...),
+        donate_argnums=(0, 1))``, at this file's limits."""
+        from repro_torch.train.loop import LoopConfig, Trainer
+
+        cfg, jm, jp, pm, pp = _models()
+        jopt, opt = _opt_cfgs()
+        batches = _batches(cfg, STEPS)
+        jstep = jax.jit(ref_step.make_train_step(jm, jopt), donate_argnums=(0, 1))
+        js = jax.tree.map(jnp.array, jp)
+        jo = ref_opt.init_opt_state(js)
+        jl = []
+        for b in batches:
+            js, jo, jmet = jstep(js, jo, _jb(b))
+            jl.append(float(jmet["loss"]))
+        trainer = Trainer(pm, iter(batches), LoopConfig(total_steps=STEPS, log_every=100),
+                          opt, log_fn=lambda s: None)
+        trainer.init_state = lambda seed=0: (pp, optimizer.init_opt_state(pp))
+        out = trainer.run()
+        assert out["params"] is pp                    # updated in place
+        assert abs(out["losses"][0] - jl[0]) <= 1e-5 * abs(jl[0])
+        for got, want in zip(out["losses"][1:], jl[1:]):
+            assert abs(got - want) <= 1e-4
+        _assert_three_steps_close(out["params"], _port_tree(js, cfg), run["grads"])
+
+    @pytest.mark.parametrize("microbatches", [1, 2])
+    def test_counted_peak_drops_by_the_f32_state(self, microbatches):
+        """``roofline.op_cost``'s counted peak of one step of rwkv6-3b at
+        full width and 8 of its 32 layers (bf16, on ``meta`` tensors, 16
+        tokens a microbatch, so that the state outweighs the activations).  The functional step
+        holds the old and the new params and f32 state at its update: 30 B
+        a parameter, 32 with the f32 accumulator.  The donated step's is
+        lower by at least the f32 master, m and v, 12 B a parameter; with
+        microbatches its peak moves to the last one's accumulation, where
+        one leaf's two f32 temporaries (its cast and its share, 8 B of the
+        largest leaf's parameters) stand beside the bf16 gradient."""
+        from repro_torch.roofline.op_cost import measure
+
+        cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=8,
+                                  microbatches=microbatches)
+        model = build_model(cfg, max_pos=64, device="cpu", use_kernel=False)
+        params = model.abstract_params()
+        batch = {k: torch.empty((microbatches, 16), dtype=torch.int64, device="meta")
+                 for k in ("tokens", "labels")}
+        sizes = [x.numel() for x in _tree.leaves(params)]
+        n = sum(sizes)
+        peaks = {}
+        for donate in (False, True):
+            step = train_step.make_train_step(model, donate=donate)
+            _, counter = measure(step, params, optimizer.init_opt_state(params), batch)
+            peaks[donate] = counter.peak
+        assert n > 1e9
+        assert peaks[False] >= (30 if microbatches == 1 else 32) * n
+        drop = 12 * n - (0 if microbatches == 1 else 8 * max(sizes))
+        assert peaks[False] - peaks[True] >= drop, (peaks, n)
 
 
 class TestBridge:

@@ -34,7 +34,10 @@ Checks, as ``tests/distributed_checks.py`` has them:
     (``attention._ring_write``) against the write into the whole ring.
 
 The train check also runs the step with 2 microbatches (FSDP, heads
-sharded) against the unsharded one.
+sharded) against the unsharded one, and, under both rule sets, two steps
+of the donated step (``make_train_step(donate=True)``, F11): the
+placements every leaf has after the first (they must be those it was
+placed on), and the loss and parameters after the second.
 """
 import dataclasses
 import datetime
@@ -48,7 +51,7 @@ import torch.distributed as dist
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch._tree import leaves  # noqa: E402
+from repro_torch._tree import leaves, tree_map  # noqa: E402
 from repro_torch.distributed import collectives, pipeline  # noqa: E402
 from repro_torch.distributed.sharding import (is_dtensor, make_rules,  # noqa: E402
                                               use_rules)
@@ -102,6 +105,19 @@ def check_train(inp, dev, out):
                                                for x in leaves(params_s)]
         out[f"train_{tag}opt_placements"] = [str(tuple(x.placements))
                                              for x in leaves(opt_s["m"])]
+        # F11: the donated step hands every leaf back on the placements it
+        # was given; a second step runs from them
+        donated = make_train_step(model, AdamWConfig(lr=1e-2), donate=True)
+        with use_rules(rules):
+            params_d = place(tree_map(torch.clone, params), p_sh, rules)
+            opt_d = place(init_opt_state(params_d),
+                          opt_state_shardings(p_sh, rules, params), rules)
+            want = _placements(params_d, opt_d)
+            p3, o3, _ = donated(params_d, opt_d, batch_s)
+            out[f"donate_{tag}want"], out[f"donate_{tag}got"] = want, _placements(p3, o3)
+            p3, _, m3 = donated(p3, o3, batch_s)
+            out[f"donate_{tag}loss2"] = _full(m3["loss"]).cpu()
+            out[f"donate_{tag}leaves2"] = [_full(x).cpu() for x in leaves(p3)]
         if fsdp:
             from repro_torch.models.transformer import _gather_fsdp
             with use_rules(rules):
@@ -129,6 +145,13 @@ def check_train(inp, dev, out):
         p2, _, m2 = step_mb(params_s, opt_s, batch_s)
         out["train_mb_loss"] = _full(m2["loss"]).cpu()
         out["train_mb_leaves"] = [_full(x).cpu() for x in leaves(p2)]
+
+
+def _placements(params, opt_state):
+    """Each leaf's placements, as strings, by tree."""
+    return {"params": [str(tuple(x.placements)) for x in leaves(params)],
+            **{k: [str(tuple(x.placements)) for x in leaves(opt_state[k])]
+               for k in ("master", "m", "v", "step")}}
 
 
 def check_forward(inp, dev, out):
