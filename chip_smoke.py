@@ -82,24 +82,30 @@ failure:
 4. the serving path on full-width qwen2-0.5b in bf16: ``ServingEngine``
    (random weights from ``torch.Generator`` seed 0), 12 requests of
    128-1024 prompt tokens and 32 new tokens each (numpy seed 0, about 2/3
-   with a home replica), 3 replicas, ``max_seq`` 2048, under the
-   ``locality``, ``round_robin`` and ``single_queue`` policies.  Each drain
+   with a home replica), 3 replicas, ``max_seq`` 2048: a ``locality``
+   drain at full depth, then the ``locality``, ``round_robin`` and
+   ``single_queue`` policies at ``POLICY_DEPTH`` (4) of its 24 layers (a
+   cut, printed).  Each drain
    runs with the launch counts zeroed just before it and read just after:
    K3 must launch 12 x 24 layers x (1 prefill + 32 decode steps) = 9504
-   times and no other kernel, the tokens must be identical across
+   times at full depth (12 x 4 x 33 at 4 layers) and no other kernel, the
+   tokens must be identical across
    policies, and each policy's ``ServeStats``, wall time, tokens per
-   second, prefill ms per request and decode ms per token are printed; one
-   more drain under ``torch.profiler`` (behind 64 one-element fills, since
-   a session can lose its first 32 device records; run again, at most
-   three times in all, if its trace still lacks a prefill marker) gives
-   the card's idle share, its
+   second, prefill ms per request and decode ms per token are printed; the
+   ``locality`` drain runs under ``torch.profiler`` (behind 64 one-element
+   fills, since a session can lose its first 32 device records; run again,
+   at most three times in all, if its trace still lacks a prefill marker),
+   which gives the card's idle share, its
    top device functions and each of the path's kernels' device time per
    call in the drain, split into prefill and decode calls (a one-cycle
    device sleep before and after each prefill marks them in the trace).
+   No separate profiled drain runs (a cut, printed: every profile of
+   phases 4-5f is taken of the timed drain itself).
    Two more drains (4b): with ``control=ControlLoop.full(batch_cap=4)``,
    and built from ``spec.named("controlled_serving")`` with 3 domains, 3
-   replicas and ``max_seq`` 2048; each must launch K3 9504 times and give
-   the ``locality`` drain's tokens.  Then the kernel path against the plain path: one
+   replicas and ``max_seq`` 2048; each at ``POLICY_DEPTH`` (4) of the 24
+   layers (a cut, printed) must launch K3 12 x 4 x 33
+   times and give the tokens of the ``locality`` drain at that depth.  Then the kernel path against the plain path: one
    request, teacher-forced with the tokens the plain path
    (``use_kernel=False``) chose, through both; the prefill's and every
    decode step's logits must agree within the bf16 limit printed beside
@@ -107,9 +113,9 @@ failure:
 5. the same drains on full-width rwkv6-3b in bf16 (32 layers, d 2560, 40
    heads of 64, 3.09 B parameters), with token ids under its 65536 vocab:
    K4 must launch 12 x 32 x 33 = 12672 times per drain and the plain WKV
-   version never (the ``locality`` drain and its profile at full depth,
-   the three policies' drains with identical tokens at 8 layers: a cut,
-   printed, as in 5b at 9 of 38 layers and in 5c); K4 is also held against ``wkv6_ref`` on a decode step
+   version never (the ``locality`` drain, profiled, at full depth,
+   the three policies' drains with identical tokens at 4 layers: a cut,
+   printed, as in 5b and 5c); K4 is also held against ``wkv6_ref`` on a decode step
    from the state a real prefill left in the cache (first and last layer).
    Its teacher-forced comparison runs on an f32 build of the same model
    (12.4 GB), whose logits carry no bf16 rounding of the residual stream;
@@ -128,11 +134,12 @@ failure:
    conv history not carried) that must each exceed the limit;
 5c. the ``locality`` drain on full-width qwen3-moe-30b-a3b in bf16 (48
    layers, d 2048, 32 q / 4 kv heads of 128, 128 experts top-8 of width
-   768, 30.53 B parameters, 61.09 GB), timed and profiled, once every
+   768, 30.53 B parameters, 61.09 GB), timed (not profiled: a cut,
+   printed), once every
    earlier model is freed: K3 must launch 12 x 48 x 33 = 19008 times per
    drain and the plain attention never; the three policies' drains, with
-   identical tokens, at 8 of its 48 layers (a cut, printed, that makes
-   room for phase 7); the peak device memory is printed, and the MoE
+   identical tokens, at 4 of its 48 layers (a cut, printed, that makes
+   room for phases 5f and 7); the peak device memory is printed, and the MoE
    block's device time is split into router and top-k, dispatch, expert
    products and combine (one layer's experts, at a decode step and at
    each prompt length, times the drain's calls).  Its teacher-forced
@@ -152,7 +159,38 @@ failure:
    drops) and the plain path's at the published capacity factor (with the
    plain path's expert choices forced, for phi3.5-moe) within a bf16
    limit, with K3 launched once per attention call and the plain path
-   none;
+   none; each model then serves 5f's drain before it is freed;
+5f. the six configurations no earlier phase drains, through
+   ``ServingEngine`` on phase 4's traffic (one ``locality`` drain each,
+   on the model 5d built where 5d runs it): gemma3-1b (26 layers, 4/1
+   heads of 256, 512-slot rings that wrap in prompts past 512 tokens),
+   qwen2-1.5b (28 layers, 12/2 heads of 128), minicpm3-4b (62 layers, MLA)
+   and whisper-base (its decoder, on the engine's zeroed cross caches;
+   prompts of 64-416 tokens and ``max_seq`` 448, its decoder's positions)
+   whole, phi3.5-moe-42b-a6.6b at 8 and llama-3.2-vision-90b at 5 layers
+   (cuts, printed; the VLM with 5d's gates): every request served with 32
+   tokens, K3 launched exactly 12 x ``attention_calls`` x 33 times (10296,
+   11088, 0 for MLA, 4752, 3168, 2376) and the plain attention never;
+   wall time, tokens per second, prefill and decode ms, peak device memory
+   beside the card's name and power limit, and for the four whole ones
+   the same drain's idle share and top device functions under
+   ``torch.profiler``.  gemma3-1b and qwen2-1.5b are also teacher-forced,
+   kernel path against plain path, on one request of 1000 prompt tokens
+   (gemma3-1b's rings wrap in prefill and decode) and 32 decode steps,
+   within the bf16 limit, with two planted faults each in the plain path
+   that must exceed it (gemma3-1b: the local layers' window dropped at
+   prefill, the ring decode reading its slots as positions in the window;
+   qwen2-1.5b: query head h reading kv head h % Hkv, rope left off k).
+   Then each of the six at ``POLICY_DEPTH`` (4) layers (a cut, printed)
+   under the three policies, with identical tokens, while 5g's subprocess
+   and 7i's two commands run in the background;
+5g. the serving driver on the card: ``python -m repro_torch.launch.serve
+   --arch qwen2-0.5b`` as a subprocess on its default device, and
+   ``launch.serve.main(["--arch", A])`` in this process for the other
+   nine architectures (the reduced f32 configs), each against the same
+   call with ``--device cpu`` (run in a process of its own while 5d-5f
+   serve): equal stats lines, and equal printed tokens unless the CPU
+   step's top two logits lie within 1e-4 (a tie, printed);
 5e. the plain long prefill on CUDA tensors: ``chunked_attention`` at 4096
    tokens with qwen2-0.5b's heads and ``banded_attention`` at 4096 with
    gemma3-1b's heads and window 512, each on f32 copies of bf16 values and
@@ -223,7 +261,8 @@ failure:
    tokens per second, the 6 N tokens bound, launches of every kernel, peak
    memory, one profiled step's idle share and each kernel's device ms; the
    loss must fall; 7i: ``python -m repro_torch.launch.train --arch A
-   --smoke --steps 20`` for both on the card.  7j (``donation_check``):
+   --smoke --steps 20`` for both on the card (started in the background
+   at 5f's policy drains, checked here).  7j (``donation_check``):
    one full-width qwen2-0.5b bf16 train step at 7b's shape, donated
    against functional from the same state and batch: params, f32 master,
    m, v, step and metrics bit for bit, the donated step's leaves in its
@@ -256,7 +295,8 @@ failure:
 9. the dry run and the roofline counter (``dryrun_phase``, at most about
    120 s; its time and cuts printed): 9a runs ``python -m
    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k,decode_32k
-   --mesh single`` in a process of its own (a mesh of device type ``cuda``
+   --mesh single`` in a process of its own, started in the background at
+   5f's policy drains (a mesh of device type ``cuda``
    over PyTorch's fake process group of 256 ranks, so the NCCL rank of
    phases 3c and 8 is not disturbed; 2 of the 40 single-pod cells): both
    cells ``ok``, their roofline rows printed; 9b holds the counter
@@ -283,7 +323,7 @@ failure:
    phase 7h's batch and length, counted as it runs on the card: each
    kernel's forward and backward records equal its launch counters; the
    counted FLOPs and bytes beside the plain step's count on ``meta``
-   tensors (counted in a process of its own while 9a runs), and the
+   tensors (counted in a process of its own from 5f on), and the
    kernel step's share of its own bound, no gate;
 10. print the ``serving``, ``training``, ``distribution``, ``roofline`` and
    ``kernels`` JSON lines, the card's name and power limit, and last the
@@ -294,11 +334,13 @@ the port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import dataclasses
 import datetime
 import gc
+import io
 import itertools
 import json
 import multiprocessing
@@ -364,6 +406,7 @@ N_REQUESTS, REPLICAS, MAX_NEW, MAX_SEQ = 12, 3, 32, 2048
 PROMPT_LEN = (128, 1024)
 POLICIES = ("locality", "round_robin", "single_queue")
 QWEN, RWKV, GRIFFIN = "qwen2-0.5b", "rwkv6-3b", "recurrentgemma-9b"
+GEMMA, QWEN15 = "gemma3-1b", "qwen2-1.5b"
 QWEN3, PHI, MINICPM, WHISPER, VLM = ("qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
                                     "minicpm3-4b", "whisper-base", "llama-3.2-vision-90b")
 # K3 at qwen2-0.5b's shapes: (name, Tq, Tk, q_offset)
@@ -433,7 +476,8 @@ K3_MISSED_CHUNK = 513
 # renormalised and 1.84 with the decode's gather reading the next expert's
 # weights; the limit sits 200x above the sound reading and 1600x below the
 # nearer fault; both faults run in every call
-LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3, QWEN3: 1e-3}
+LOGITS_ATOL = {QWEN: 0.25, RWKV: 0.125, GRIFFIN: 1e-3, QWEN3: 1e-3,
+               GEMMA: 0.25, QWEN15: 0.25}
 # the other four new configurations in bf16: decoded logits against the full
 # forward, and the kernel path against the plain path, within qwen2-0.5b's
 # bf16 limit (4 bf16 ulps at |logits| 8-16).  Measured on the H100 (PERF.md
@@ -451,13 +495,37 @@ OTHER_ATOL = {MINICPM: 0.25, WHISPER: 0.25, PHI: 0.25, VLM: 0.25}
 # llama-3.2-vision-90b (181 GB whole) at the depth given here
 QWEN3_F32_LAYERS = 8
 OTHER_DEPTH = {MINICPM: None, WHISPER: None, PHI: 8, VLM: 5}
-# The round_robin and single_queue drains of these configurations run at
-# this depth (with a locality drain beside them, for token identity across
-# policies); their locality drain and its profile stay at full depth.  Cuts
-# that buy phase 7 its time: on an H100 80GB HBM3 the full-depth drains took
-# 40-42 s each (qwen3-moe) and 25-32 s (rwkv6-3b, recurrentgemma-9b)
-POLICY_DEPTH = {RWKV: 8, GRIFFIN: 9, QWEN3: 8}
+# The round_robin and single_queue drains of every served configuration run
+# at this depth (with a locality drain beside them, for token identity
+# across policies); the locality drain stays at full depth.  Cuts that buy
+# phases 5f-7 their time: on an H100 80GB HBM3 the full-depth drains took
+# 15 s each (qwen2-0.5b), 40-42 s (qwen3-moe) and 25-32 s (rwkv6-3b,
+# recurrentgemma-9b), and at 8, 9 and 8 layers 5-9 s
+POLICY_DEPTH = 4
 OTHER_PREFILL, OTHER_DECODE = 128, 8
+# 5f: the six configurations no earlier phase drains, each served by
+# ServingEngine on phase 4's traffic (one locality drain), at the depth
+# given here (None: whole; phi3.5-moe and llama-vision as OTHER_DEPTH cuts
+# them, since neither fits one card whole).  The whole ones' drain runs
+# under torch.profiler.  whisper-base's decoder has 448 learned positions,
+# so its prompts are cut to 64-416 tokens (the same seed): 416 + 32 new
+# tokens fill exactly those 448, its max_seq
+SERVE_DEPTH = {GEMMA: None, QWEN15: None, **OTHER_DEPTH}
+WHISPER_CONTEXT = 448
+SERVE_PROMPT_LEN = {WHISPER: (64, WHISPER_CONTEXT - MAX_NEW)}
+# gemma3-1b's and qwen2-1.5b's teacher-forced request: 1000 prompt tokens,
+# so that gemma3-1b's 512-slot rings wrap in prefill and in every decode step
+TF_PROMPT = 1000
+# 5g: the serving driver on the card against its CPU run.  A token that
+# differs is allowed only where the CPU run's top two logits at that step
+# lie within CLI_TIE of each other (a tie; the reduced configs are f32, K3
+# within 3e-5); the CPU runs take this many threads in their own process
+CLI_TIE = 1e-4
+CLI_CPU_THREADS = 2
+CLI_SUBPROCESS_ARCH = QWEN
+# the most this script waits, from when it asks, for a command it started
+# in the background (5g's, 7i's, 9a's) to end
+COMMAND_TIMEOUT_S = 300
 VLM_GATES = (0.5, -0.7)       # gate_x, gate_m: non-zero, so the cross path counts
 # K3 at the new architectures' shapes: (name, Hq, Hkv, hd, Tq, Tk, q_offset,
 # causal).  qwen3-moe: 32 q / 4 kv heads of 128 (group 8); whisper-base: 8/8
@@ -749,13 +817,13 @@ def call_summary(us: list[float]) -> dict:
     return {"calls": len(us), "total_ms": sum(us) / 1e3, "mean_us": sum(us) / max(len(us), 1)}
 
 
-def requests(cfg, request_cls) -> list:
+def requests(cfg, request_cls, prompt_len=PROMPT_LEN) -> list:
     """The serving workload (numpy seed 0), with token ids under the
-    config's vocabulary."""
+    config's vocabulary and prompts of ``prompt_len`` tokens (inclusive)."""
     rng = np.random.default_rng(0)
     reqs = []
     for i in range(N_REQUESTS):
-        plen = int(rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1))
+        plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
         toks = rng.integers(0, cfg.vocab_size, size=plen)
         home = int(rng.integers(0, REPLICAS)) if rng.random() < 0.67 else -1
         reqs.append(request_cls(uid=i, tokens=toks, max_new=MAX_NEW, home_replica=home))
@@ -1100,11 +1168,36 @@ def attention_calls(cfg, frames: bool) -> int:
     per attention layer (none for MLA, which runs its plain path), one
     more per "cross" layer, and one per encoder layer when frames are
     encoded."""
-    per = sum((cfg.mla is None) + (kind == "cross") for kind in cfg.layer_kinds())
+    per = sum((cfg.mla is None) + (kind == "cross") for kind in cfg.layer_kinds()
+              if kind in ("full", "local", "cross"))
     return per + (cfg.encoder.num_layers if frames and cfg.encoder is not None else 0)
 
 
-def other_archs(dev, build, counts, zero_counts, limits) -> dict:
+def serve_config(arch, depth=None):
+    """``arch``'s config as phase 5f serves it: cut to ``depth`` layers,
+    else to ``SERVE_DEPTH[arch]`` (None: whole)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    depth = SERVE_DEPTH[arch] if depth is None else depth
+    return cfg if depth is None else dataclasses.replace(cfg, num_layers=depth)
+
+
+def serve_prompt_len(arch) -> tuple[int, int]:
+    return SERVE_PROMPT_LEN.get(arch, PROMPT_LEN)
+
+
+def serve_max_seq(arch) -> int:
+    return WHISPER_CONTEXT if arch == WHISPER else MAX_SEQ
+
+
+def drain_k3_launches(cfg) -> int:
+    """K3 launches of one drain of the workload on ``cfg``: every request's
+    prefill and decode steps, ``attention_calls`` each."""
+    return N_REQUESTS * (1 + MAX_NEW) * attention_calls(cfg, frames=False)
+
+
+def other_archs(dev, build, counts, zero_counts, limits, then=None) -> dict:
     """The four other new configurations at full width (depth cut as
     ``OTHER_DEPTH`` says): a prefill of ``OTHER_PREFILL`` tokens (whisper
     with its frames, the VLM with its image tokens and gates set non-zero,
@@ -1117,7 +1210,9 @@ def other_archs(dev, build, counts, zero_counts, limits) -> dict:
     (``RoutingLog(force=...)``), as the teacher-forced comparisons take its
     tokens: the plain path rounds attention's softmax weights to bf16 and K3
     does not, and a top-k choice flips on such differences.  How many
-    choices differ unforced, and that run's gap, are printed."""
+    choices differ unforced, and that run's gap, are printed.  ``then(arch,
+    cfg, model, params)``, when given, runs on each model before it is
+    freed (phase 5f's drain)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -1228,9 +1323,155 @@ def other_archs(dev, build, counts, zero_counts, limits) -> dict:
                      "max_abs_err_vs_plain_unforced": gap_unforced, "limit": limit,
                      "k3_launches": launched_k["flash_attention"],
                      "routes_differ_forward": flips_forward, "routes_differ_plain": flips_plain}
-        del model, params, kernel_nd
+        del kernel_nd, full, steps_nd, steps_k, steps_kf, steps_p
+        if then is not None:
+            then(arch, cfg, model, params)
+        del model, params
         free_device_memory()
     return res
+
+
+def cpu_serve_runs(path: str) -> None:
+    """Phase 5g's CPU side, in a process of its own (it runs while the
+    card serves): ``repro_torch.launch.serve.main(["--arch", A, "--device",
+    "cpu"])`` for every architecture, its printed lines and, for each
+    request, the gap between the top two logits of each step whose argmax
+    is a generated token (the tie rule), written to ``path`` as JSON."""
+    torch.set_num_threads(CLI_CPU_THREADS)
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import Model
+    from repro_torch.serving import engine
+
+    gaps: dict[int, list[float]] = {}
+    current: list[int] = []
+    run, prefill, decode = engine.Replica.run, Model.prefill, Model.decode_step
+
+    def tracked_run(self, req):
+        current[:] = [req.uid]
+        gaps[req.uid] = []
+        return run(self, req)
+
+    def gap_of(out):
+        top2 = torch.topk(out[0][0, -1].float(), 2).values
+        gaps[current[0]].append(float(top2[0] - top2[1]))
+        return out
+
+    engine.Replica.run = tracked_run
+    Model.prefill = lambda self, *args: gap_of(prefill(self, *args))
+    Model.decode_step = lambda self, *args: gap_of(decode(self, *args))
+    res = {}
+    for arch in list_archs():
+        gaps.clear()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve_cli.main(["--arch", arch, "--device", "cpu"])
+        res[arch] = {"lines": buf.getvalue().splitlines(), "seconds": time.perf_counter() - t0,
+                     "gaps": {str(uid): g for uid, g in gaps.items()}}
+    pathlib.Path(path).write_text(json.dumps(res))
+
+
+def printed_requests(lines: list[str]) -> dict[int, list[int]]:
+    """The serving driver's ``req N -> [tokens]`` lines as {N: tokens}."""
+    return {int(line.split()[1]): json.loads(line.split("->", 1)[1])
+            for line in lines if line.startswith("req ")}
+
+
+def start_command(args: list[str]) -> tuple:
+    """``python args`` from the checkout's root with the port on its path,
+    started in the background: (command line, process, start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return " ".join(args), proc, time.perf_counter()
+
+
+def finish_command(started) -> tuple:
+    """Wait for a ``start_command`` process, at most COMMAND_TIMEOUT_S more
+    seconds: (command line, exit code, stdout, stderr, seconds since its
+    start)."""
+    cmd, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=COMMAND_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{cmd} ran past {COMMAND_TIMEOUT_S} s more")
+    return cmd, proc.returncode, out, err, time.perf_counter() - t0
+
+
+def serve_cli_phase(card, cpu_proc, cpu_path, subprocess_run) -> dict:
+    """Phase 5g: the serving driver on the card, as a user runs it:
+    ``python -m repro_torch.launch.serve --arch qwen2-0.5b`` in a
+    subprocess on its default device (cuda; ``subprocess_run``, started by
+    ``start_command``), and ``main(["--arch", A])`` in this process for
+    the other nine, each against the same call with
+    ``--device cpu`` (``cpu_serve_runs``, in ``cpu_proc``): the stats line
+    must be equal, and so must the printed tokens, except past a token
+    whose CPU step had its top two logits within CLI_TIE (a tie, printed)."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import serve as serve_cli
+
+    card_runs = {}
+    for arch in list_archs():
+        t0 = time.perf_counter()
+        if arch == CLI_SUBPROCESS_ARCH:
+            cmd, rc, stdout, stderr, secs = finish_command(subprocess_run)
+            if rc:
+                fail(f"{cmd} failed on the card:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+            lines, how = stdout.splitlines(), f"$ {cmd} (in the background since 5f)"
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve_cli.main(["--arch", arch])
+            lines, how = buf.getvalue().splitlines(), f"main(['--arch', '{arch}'])"
+            secs = time.perf_counter() - t0
+        card_runs[arch] = {"how": how, "lines": lines, "seconds": secs}
+    t0 = time.perf_counter()
+    cpu_proc.join(COMMAND_TIMEOUT_S)
+    if cpu_proc.is_alive():
+        cpu_proc.kill()
+        cpu_proc.join()
+        fail(f"5g: the CPU runs of the serving driver ran past {COMMAND_TIMEOUT_S} s")
+    if cpu_proc.exitcode != 0:
+        fail(f"5g: the CPU runs of the serving driver exited {cpu_proc.exitcode}")
+    cpu = json.loads(pathlib.Path(cpu_path).read_text())
+    shutil.rmtree(pathlib.Path(cpu_path).parent)
+    print(f"5g: the CPU runs (their own process, {CLI_CPU_THREADS} threads, since 5f) "
+          f"waited for {time.perf_counter() - t0:.1f} s more")
+    out = {}
+    for arch, run in card_runs.items():
+        want = cpu[arch]
+        got_req, want_req = printed_requests(run["lines"]), printed_requests(want["lines"])
+        ties, unequal = [], []
+        for uid, toks in want_req.items():
+            mine = got_req.get(uid, [])
+            first = next((i for i, (a, b) in enumerate(zip(mine, toks)) if a != b),
+                         None if len(mine) == len(toks) else min(len(mine), len(toks)))
+            if first is None:
+                continue
+            gap = want["gaps"][str(uid)][first] if first < len(toks) else None
+            (ties if gap is not None and gap <= CLI_TIE else unequal).append(
+                (uid, first, gap))
+        print(f"{run['how']} on the card ({run['seconds']:.1f} s; CPU {want['seconds']:.1f} "
+              f"s): {run['lines'][-1]}; {len(got_req)} printed requests, tokens equal to "
+              f"the CPU run's in {len(want_req) - len(ties) - len(unequal)}")
+        for uid, i, gap in ties:
+            print(f"  {arch} req {uid}: token {i} differs from the CPU run's on a tie (the "
+                  f"CPU step's top two logits {gap:.3e} apart, limit {CLI_TIE}): card "
+                  f"{got_req[uid]}, CPU {want_req[uid]}")
+        if run["lines"][-1] != want["lines"][-1] or len(run["lines"]) != len(want["lines"]):
+            fail(f"5g {arch}: the stats line on the card {run['lines'][-1]!r} against "
+                 f"{want['lines'][-1]!r} on the CPU")
+        if unequal or set(got_req) != set(want_req):
+            fail(f"5g {arch}: tokens differ from the CPU run's off a tie (request, "
+                 f"token, top-two gap): {unequal}\ncard {run['lines']}\ncpu {want['lines']}")
+        out[arch] = {"how": run["how"], "stats_line": run["lines"][-1],
+                     "seconds": run["seconds"], "cpu_seconds": want["seconds"],
+                     "ties": ties}
+    return out
 
 
 # -- 7. training ------------------------------------------------------------
@@ -1711,9 +1952,10 @@ WKV_BWD_KERNELS = ("wkv6_bwd_local_kernel", "wkv6_bwd_carry_kernel", "wkv6_bwd_k
                    "wkv6_bwd_finish_kernel")
 # 7g: one train step of each at full width, kernel path against plain path,
 # at a cut depth and batch (the plain WKV loop's autograd is seconds a layer
-# at T 1024): bf16 at POLICY_DEPTH layers, f32 at ARCH_F32_LAYERS layers with
-# two planted faults in the backward kernel
+# at T 1024): bf16 at ARCH_STEP_DEPTH layers, f32 at ARCH_F32_LAYERS layers
+# with two planted faults in the backward kernel
 ARCH_STEP_BATCH, ARCH_STEP_SEQ = 2, 512
+ARCH_STEP_DEPTH = {RWKV: 8, GRIFFIN: 9}
 ARCH_F32_LAYERS = {RWKV: 2, GRIFFIN: 3}
 # Limits, fixed from the first reading on the card (H100 80GB HBM3, 700 W;
 # PERF.md §6): the worst leaf's gradient gap (share of the leaf's
@@ -1974,11 +2216,12 @@ def recurrent_backward_phase(dev, card) -> dict:
             "k5_cases": k5_res}
 
 
-def arch_phase(dev, card) -> dict:
+def arch_phase(dev, card, commands) -> dict:
     """Phases 7g-7i for rwkv6-3b and recurrentgemma-9b: a full-width train
     step, kernel path against plain path (bf16 at a cut depth; f32 at fewer
     layers with two planted faults in the backward kernel); the trainer at
-    full width; ``python -m repro_torch.launch.train --smoke`` on the card."""
+    full width; ``python -m repro_torch.launch.train --smoke`` on the card,
+    started in the background (``commands[arch]``, ``start_command``)."""
     from repro_torch import _tree
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_iterator
@@ -2090,7 +2333,7 @@ def arch_phase(dev, card) -> dict:
 
         # -- 7g ----------------------------------------------------------------
         stamp(f"7g {arch}")
-        depth = POLICY_DEPTH[arch]
+        depth = ARCH_STEP_DEPTH[arch]
         print(f"{arch} train step: cut to {depth} of {base.num_layers} layers and "
               f"{ARCH_STEP_BATCH} x {ARCH_STEP_SEQ} tokens, full width")
         out["step_bf16"] = compare(f"{arch} bf16 train step, {depth} layers",
@@ -2212,19 +2455,13 @@ def arch_phase(dev, card) -> dict:
 
         # -- 7i ----------------------------------------------------------------
         stamp(f"7i {arch}")
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
-               "--steps", str(CLI_STEPS)]
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        print(f"$ {' '.join(cmd[1:])}  (exit {proc.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s): " + " | ".join(lines[-2:]))
-        if proc.returncode or len(lines) < 2 or not lines[-1].startswith("last-10"):
-            fail(f"{' '.join(cmd[1:])} failed on the card:\n{proc.stdout[-2000:]}"
-                 f"\n{proc.stderr[-4000:]}")
-        out["cli"] = {"command": " ".join(cmd[1:]), "lines": lines[-2:]}
+        cmd, rc, stdout, stderr, secs = finish_command(commands[arch])
+        lines = stdout.strip().splitlines()
+        print(f"$ {cmd}  (exit {rc}, started {secs:.1f} s before; in the background "
+              f"since 5f): " + " | ".join(lines[-2:]))
+        if rc or len(lines) < 2 or not lines[-1].startswith("last-10"):
+            fail(f"{cmd} failed on the card:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        out["cli"] = {"command": cmd, "lines": lines[-2:]}
     return results
 
 
@@ -2597,11 +2834,10 @@ T_START = time.perf_counter()
 # card's: 1.0000-1.0001 in two runs, the margin the allocator's rounding
 # and workspaces), the kernel step's counted FLOPs against the plain
 # step's (K3 counts the visible pairs only; far below, the count missed
-# ops), and the subprocess's time limit
+# ops)
 DRYRUN_CELLS = ("qwen2-0.5b", "train_4k,decode_32k")
 MEMORY_RATIO = (0.98, 1.02)
 KERNEL_FLOPS_RATIO = (0.85, 1.0)
-DRYRUN_TIMEOUT_S = 300
 # 9c: every kernel's wrapper reports its launches (op_cost.kernel_launch).
 # The paper's runtime sweep: 240 slab launches of K1, each reading its 10
 # rows and its halo planes (2878 planes in all) and writing its rows (2400),
@@ -2611,16 +2847,35 @@ DRYRUN_TIMEOUT_S = 300
 # plain loops' every step and takes 10-14 s a microbatch and rwkv layer
 # on the host, so it runs two microbatches and counts the second for the
 # rest (as the dry run does, exact), at these depths, in a process of its
-# own that runs while 9a's subprocess does (the host has the cores)
+# own that runs from 5f on, beside the card's phases (the host has the cores)
 K1_SWEEP_BYTES = (2878 + 2400) * 600 * 600 * 4
 LATTICE_BYTES = 2 * 2400 * 600 * 600 * 4
 COUNT_DEPTH = {RWKV: 1, GRIFFIN: 3}
 PLAIN_COUNT_TIMEOUT_S = 240
 
 
-def dryrun_phase(dev, card) -> dict:
+def start_dryrun() -> dict:
+    """Start phase 9's two processes of their own in the background: 9a's
+    dry run (``python -m repro_torch.launch.dryrun``) and 9c's count of the
+    plain train steps on meta tensors (``count_plain_steps``).  Both run on
+    the host while earlier phases run; ``dryrun_phase`` collects them."""
+    arch, shapes = DRYRUN_CELLS
+    tmp = pathlib.Path(tempfile.mkdtemp())
+    plain_counts = tmp / "plain_counts.json"
+    counting = multiprocessing.get_context("spawn").Process(
+        target=count_plain_steps, args=(str(plain_counts),), daemon=True)
+    counting.start()
+    table = tmp / "torch_dryrun.json"
+    dryrun = start_command(["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                            shapes, "--mesh", "single", "--out", str(table), "--force"])
+    return {"counting": counting, "plain_counts": plain_counts, "dryrun": dryrun,
+            "table": table}
+
+
+def dryrun_phase(dev, card, started) -> dict:
     """Phase 9: the dry run over the fake process group (9a) and the op
-    counter held to the card (9b)."""
+    counter held to the card (9b); 9a's process and 9c's count, started
+    by ``start_dryrun``, are collected here."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.kernels.flash_attention import kernel as k3
@@ -2632,36 +2887,23 @@ def dryrun_phase(dev, card) -> dict:
 
     t_phase = time.perf_counter()
     out: dict = {}
-    plain_counts = pathlib.Path(tempfile.mkdtemp()) / "plain_counts.json"
-    counting = multiprocessing.get_context("spawn").Process(
-        target=count_plain_steps, args=(str(plain_counts),), daemon=True)
-    counting.start()
+    counting, plain_counts = started["counting"], started["plain_counts"]
 
     # -- 9a. the dry run's cells, in a process of its own --------------------
     stamp("9a")
     arch, shapes = DRYRUN_CELLS
     print(f"9a: cut to {arch} x {shapes}, single pod (2 of 40 cells); the mesh's "
           f"device type cuda over a fake process group of 256 ranks")
-    with tempfile.TemporaryDirectory() as tmp:
-        table = pathlib.Path(tmp) / "torch_dryrun.json"
-        env = dict(os.environ)
-        env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                 "--shape", shapes, "--mesh", "single", "--out", str(table), "--force"],
-                cwd=ROOT, env=env, capture_output=True, text=True,
-                timeout=DRYRUN_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            fail(f"9a: the dry run ran past {DRYRUN_TIMEOUT_S} s")
-        secs = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            if line.startswith(("[done]", "total:")):
-                print(f"9a: {line}")
-        if proc.returncode != 0:
-            fail(f"9a: the dry run exited {proc.returncode}: {proc.stderr[-2000:]}")
-        cells = json.loads(table.read_text())
+    t0 = time.perf_counter()
+    cmd, rc, stdout, stderr, secs = finish_command(started["dryrun"])
+    for line in stdout.splitlines():
+        if line.startswith(("[done]", "total:")):
+            print(f"9a: {line}")
+    if rc != 0:
+        fail(f"9a: the dry run exited {rc}: {stderr[-2000:]}")
+    cells = json.loads(started["table"].read_text())
+    print(f"9a: {cmd}, in the background since 5f, waited for "
+          f"{time.perf_counter() - t0:.1f} s more")
     for key, cell in sorted(cells.items()):
         if cell.get("status") == "error":
             print(f"9a: {key}: {cell['trace']}")
@@ -2914,7 +3156,7 @@ def kernel_report_phase(dev, card, counting, plain_counts) -> dict:
         fail(f"9c: the plain steps' count exited {counting.exitcode}")
     plain = json.loads(plain_counts.read_text())
     shutil.rmtree(plain_counts.parent)
-    print(f"9c: the plain steps' count, in a process of its own since 9a, waited for "
+    print(f"9c: the plain steps' count, in a process of its own since 5f, waited for "
           f"{time.perf_counter() - t0:.1f} s more")
     counters = {"K3": k3.flash_attention, "K3 backward": k3.flash_attention_backward,
                 "K4": k4.wkv6_cuda, "K4 backward": k4.wkv6_backward,
@@ -3087,15 +3329,14 @@ def main() -> None:
 
     def path_launches(cfg, n_requests):
         """The launches of each kernel that serving ``n_requests`` requests
-        of ``cfg`` must make: one per layer of its kind per prefill and per
-        decode step."""
-        kernel_of = {"full": "flash_attention", "local": "flash_attention",
-                     "rwkv": "wkv6", "rglru": "rglru"}
-        want: dict[str, int] = {}
-        for kind in cfg.layer_kinds():
-            name = kernel_of[kind]
-            want[name] = want.get(name, 0) + n_requests * (1 + MAX_NEW)
-        return want
+        of ``cfg`` must make, per prefill and per decode step: K3 once per
+        attention call (``attention_calls``: a "cross" layer's self- and
+        cross-attention, none for MLA), K4 once per rwkv layer and K5 once
+        per rglru layer."""
+        kinds = cfg.layer_kinds()
+        per_step = {"flash_attention": attention_calls(cfg, frames=False),
+                    "wkv6": kinds.count("rwkv"), "rglru": kinds.count("rglru")}
+        return {name: n_requests * (1 + MAX_NEW) * n for name, n in per_step.items() if n}
 
     def path_ok(launched, want):
         """Every kernel launched exactly as often as ``want`` says (zero for
@@ -3545,76 +3786,40 @@ def main() -> None:
               f"built in {time.perf_counter() - t0:.2f} s")
         return model, params
 
-    def serve(arch, cfg, policies=POLICIES, profiled=True):
-        """Build ``arch`` at full width, drain the workload under each of
-        ``policies`` (checking that each drain launches each kernel of the
-        path once per layer of its kind per prefill and decode step, and no
-        other kernel or plain version, and that the policies' tokens are
-        identical) and, with ``profiled``, profile one more ``locality``
-        drain.  Returns (model, params, metrics, the first policy's tokens)."""
-        model, params = build(arch, cfg)
+    def serve(arch, cfg, policies=POLICIES, profiled=True, built=None,
+              prompt_len=PROMPT_LEN, max_seq=MAX_SEQ):
+        """Drain the workload (``requests(cfg, Request, prompt_len)``) on
+        ``arch`` at full width under each of ``policies``, checking that each
+        drain launches each kernel of the path once per attention or
+        recurrent call of each prefill and decode step, and no other kernel
+        or plain version, and that the policies' tokens are identical.  With
+        ``profiled``, the first policy's drain runs under ``torch.profiler``
+        (its wall time, tokens per second and step times are those of the
+        traced drain; it runs again, at most three times in all, while its
+        trace lacks a prefill marker or a kernel's prefill call).  The model
+        is built from seed 0 unless ``built`` gives (model, params).
+        Returns (model, params, metrics, the first policy's tokens)."""
+        model, params = build(arch, cfg) if built is None else built
+        reqs = lambda: requests(cfg, Request, prompt_len)  # noqa: E731
 
         def new_engine(policy):
             engine = ServingEngine(model, params, num_replicas=REPLICAS,
-                                   max_seq=MAX_SEQ, policy=policy)
-            for req in requests(cfg, Request):
+                                   max_seq=max_seq, policy=policy)
+            for req in reqs():
                 engine.submit(req)
             return engine
 
         want = path_launches(cfg, N_REQUESTS)
-        prompt_tokens = sum(len(r.tokens) for r in requests(cfg, Request))
-        print(f"{arch} serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens, "
-              f"{MAX_NEW} new tokens each, {REPLICAS} replicas, max_seq {MAX_SEQ}; "
-              f"want launches {want} per drain")
+        prompt_tokens = sum(len(r.tokens) for r in reqs())
+        print(f"{arch} serving: {N_REQUESTS} requests, {prompt_tokens} prompt tokens "
+              f"({prompt_len[0]}-{prompt_len[1]} a request), {MAX_NEW} new tokens each, "
+              f"{REPLICAS} replicas, max_seq {max_seq}; want launches {want} per drain")
         # warm-up (cuBLAS handles, the caching allocator): one short request,
         # so the first policy's times are not the process's first calls
-        warm = requests(cfg, Request)[0]
+        warm = reqs()[0]
         warm.max_new = 2
-        Replica(model, params, MAX_SEQ).run(warm)
+        Replica(model, params, max_seq).run(warm)
         torch.cuda.synchronize()
-        outs, metrics = {}, {}
-        for policy in policies:
-            engine = new_engine(policy)
-            prefill_t, decode_t = Timed(model.prefill), Timed(model.decode_step)
-            for rep in engine.replicas:
-                rep._prefill, rep._decode = prefill_t, decode_t
-            torch.cuda.synchronize()
-            zero_counts()
-            t0 = time.perf_counter()
-            done = engine.run_until_drained()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launched = counts()
-            outs[policy] = {r.uid: tuple(r.out_tokens) for r in done}
-            generated = sum(len(r.out_tokens) for r in done)
-            m = {"wall_s": wall, "tokens_per_s": generated / wall,
-                 "prefill_ms_per_request": float(np.mean(prefill_t.ms)),
-                 "decode_ms_per_token": float(np.mean(decode_t.ms)),
-                 "launches": launched, "stats": engine.stats}
-            metrics[policy] = m
-            print(f"{arch} {policy}: {engine.stats}, locality "
-                  f"{engine.stats.locality_fraction:.3f}")
-            print(f"{arch} {policy}: wall {wall:.4f} s, {generated} tokens, "
-                  f"{m['tokens_per_s']:.2f} tokens/s, prefill "
-                  f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
-                  f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
-            if not path_ok(launched, want):
-                fail(f"{arch} {policy}: launches {launched}, want {want} and no "
-                     f"other kernel or plain call")
-            if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
-                    not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values()
-                            for t in o):
-                fail(f"{arch} {policy}: served {len(done)} requests, {generated} tokens")
-        first = outs[policies[0]]
-        if any(outs[p] != first for p in policies):
-            fail(f"{arch}: the policies generated different tokens")
-        print(f"{arch}: tokens identical across {policies}; request 0: "
-              f"{list(first[0])}")
-        if not profiled:
-            result = {p: {k: v for k, v in m.items() if k != "stats"}
-                      | {"stats": vars(m["stats"])} for p, m in metrics.items()}
-            return model, params, result, first
-
         from torch.profiler import ProfilerActivity, profile
         # a device sleep of one cycle before and after each prefill marks the
         # prefill calls' records in the trace
@@ -3627,66 +3832,118 @@ def main() -> None:
             torch.cuda._sleep(1)
             return out
 
-        # the prefill/decode split below rests on two markers per prefill and
-        # on one prefill call per layer and request of each kernel: a session
-        # whose trace lacks any record of these is run again, at most twice
-        for attempt in range(3):
-            engine = new_engine("locality")
+        def drain(policy, traced):
+            """One drain: (engine, requests served, wall s, launches, Timed
+            prefill, Timed decode, the profiler or None)."""
+            engine = new_engine(policy)
+            prefill_t = Timed(marked_prefill if traced else model.prefill)
+            decode_t = Timed(model.decode_step)
             for rep in engine.replicas:
-                rep._prefill = marked_prefill
+                rep._prefill, rep._decode = prefill_t, decode_t
             prefills.clear()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                warm_profiler()
+            with (profile(activities=[ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()) as prof:
+                if traced:
+                    warm_profiler()
                 zero_counts()
                 t0 = time.perf_counter()
-                engine.run_until_drained()
+                done = engine.run_until_drained()
                 torch.cuda.synchronize()
-                prof_wall_ms = (time.perf_counter() - t0) * 1e3
-            prof_launches = counts()
+                wall = time.perf_counter() - t0
+            return engine, done, wall, counts(), prefill_t, decode_t, prof
+
+        def read_trace(prof):
+            """(device busy ms, the kernels' calls in the drain split into
+            prefill and decode, the marker count, the spans, seconds taken
+            to read them) of a traced drain."""
             t0 = time.perf_counter()
             spans = drop_warmup(device_spans(prof))
             markers = [sp for sp in spans if sp[0] == marker_name]
             spans = [sp for sp in spans if sp[0] != marker_name]
-            busy = busy_ms(spans)
             in_drain = {}
             for name in want:
                 calls = kernel_calls(spans, markers, name)
                 in_drain[name] = call_summary([us for _, us in calls]) | {
                     kind: call_summary([us for pre, us in calls if pre == (kind == "prefill")])
                     for kind in ("prefill", "decode")}
-            prefill_calls = {name: m["prefill"]["calls"] for name, m in in_drain.items()}
-            print(f"profiled drain, attempt {attempt + 1}: {len(prefills)} prefills, "
-                  f"{len(markers)} prefill markers ({marker_name}), prefill calls "
-                  f"{prefill_calls}, reversed records "
-                  f"{sum(1 for _, st, e in spans + markers if e < st)}")
-            if len(prefills) == N_REQUESTS and len(markers) == 2 * len(prefills) and all(
-                    n == want[name] // (1 + MAX_NEW) for name, n in prefill_calls.items()):
-                break
-        else:
-            want_prefill = {name: n // (1 + MAX_NEW) for name, n in want.items()}
-            fail(f"{arch} profiled drain: {len(prefills)} prefills, {len(markers)} "
-                 f"markers, prefill calls {prefill_calls}; want {N_REQUESTS}, two "
-                 f"markers each and {want_prefill}")
-        print(f"profiler: {len(spans)} device records read in "
-              f"{time.perf_counter() - t0:.1f} s")
-        if busy <= 0 or not path_ok(prof_launches, want):
-            fail(f"{arch} profiled drain: device busy {busy} ms, launches {prof_launches}")
-        idle_share = 1 - busy / prof_wall_ms
-        print(f"{arch} profiled drain (locality): wall {prof_wall_ms:.4f} ms, device "
-              f"busy {busy:.4f} ms, idle share {idle_share:.4f}")
-        print("device time by function over the profiled drain:")
-        print("\n".join(top_kernels(spans)))
-        for name in want:
-            print(f"{arch} profiled drain, {name}: " + "; ".join(
-                f"{kind} {m['calls']} calls, {m['total_ms']:.3f} ms, {m['mean_us']:.3f} us per call"
-                for kind, m in (("all", in_drain[name]), ("prefill", in_drain[name]["prefill"]),
-                                ("decode", in_drain[name]["decode"])))
-                + f" ({in_drain[name]['total_ms'] / busy:.1%} of device busy time)")
-        del engine, prof, spans
+            return busy_ms(spans), in_drain, markers, spans, time.perf_counter() - t0
+
+        outs, metrics, traced_result = {}, {}, {}
+        for policy in policies:
+            traced = profiled and policy == policies[0]
+            # the prefill/decode split rests on two markers per prefill and
+            # on one prefill call per layer and request of each kernel: a
+            # traced drain whose trace lacks any record of these runs again
+            for attempt in range(3 if traced else 1):
+                engine, done, wall, launched, prefill_t, decode_t, prof = drain(
+                    policy, traced)
+                if not traced:
+                    break
+                busy, in_drain, markers, spans, read_s = read_trace(prof)
+                prefill_calls = {name: m["prefill"]["calls"] for name, m in in_drain.items()}
+                print(f"profiled drain, attempt {attempt + 1}: {len(prefills)} prefills, "
+                      f"{len(markers)} prefill markers ({marker_name}), prefill calls "
+                      f"{prefill_calls}, reversed records "
+                      f"{sum(1 for _, st, e in spans + markers if e < st)}")
+                if len(prefills) == N_REQUESTS and len(markers) == 2 * len(prefills) and all(
+                        n == want[name] // (1 + MAX_NEW) for name, n in prefill_calls.items()):
+                    break
+            else:
+                want_prefill = {name: n // (1 + MAX_NEW) for name, n in want.items()}
+                fail(f"{arch} profiled drain: {len(prefills)} prefills, {len(markers)} "
+                     f"markers, prefill calls {prefill_calls}; want {N_REQUESTS}, two "
+                     f"markers each and {want_prefill}")
+            outs[policy] = {r.uid: tuple(r.out_tokens) for r in done}
+            generated = sum(len(r.out_tokens) for r in done)
+            m = {"wall_s": wall, "tokens_per_s": generated / wall,
+                 "prefill_ms_per_request": float(np.mean(prefill_t.ms)),
+                 "decode_ms_per_token": float(np.mean(decode_t.ms)),
+                 "launches": launched, "stats": engine.stats, "profiled": traced}
+            metrics[policy] = m
+            print(f"{arch} {policy}: {engine.stats}, locality "
+                  f"{engine.stats.locality_fraction:.3f}")
+            print(f"{arch} {policy}{' (profiled)' if traced else ''}: wall {wall:.4f} s, "
+                  f"{generated} tokens, {m['tokens_per_s']:.2f} tokens/s, prefill "
+                  f"{m['prefill_ms_per_request']:.4f} ms per request, decode "
+                  f"{m['decode_ms_per_token']:.4f} ms per token, launches {launched}")
+            if not path_ok(launched, want):
+                fail(f"{arch} {policy}: launches {launched}, want {want} and no "
+                     f"other kernel or plain call")
+            if len(done) != N_REQUESTS or generated != N_REQUESTS * MAX_NEW or \
+                    not all(0 <= t < cfg.vocab_padded() for o in outs[policy].values()
+                            for t in o):
+                fail(f"{arch} {policy}: served {len(done)} requests, {generated} tokens")
+            if traced:
+                print(f"profiler: {len(spans)} device records read in {read_s:.1f} s")
+                if busy <= 0:
+                    fail(f"{arch} profiled drain: device busy {busy} ms")
+                idle_share = 1 - busy / (wall * 1e3)
+                print(f"{arch} profiled drain ({policy}): wall {wall * 1e3:.4f} ms, device "
+                      f"busy {busy:.4f} ms, idle share {idle_share:.4f}")
+                print("device time by function over the profiled drain:")
+                top = top_kernels(spans)
+                print("\n".join(top))
+                for name in want:
+                    print(f"{arch} profiled drain, {name}: " + "; ".join(
+                        f"{kind} {s['calls']} calls, {s['total_ms']:.3f} ms, "
+                        f"{s['mean_us']:.3f} us per call"
+                        for kind, s in (("all", in_drain[name]),
+                                        ("prefill", in_drain[name]["prefill"]),
+                                        ("decode", in_drain[name]["decode"])))
+                        + f" ({in_drain[name]['total_ms'] / busy:.1%} of device busy time)")
+                traced_result = {"idle_share": idle_share, "kernels_in_drain": in_drain,
+                                 "device_busy_ms": busy, "top_device_functions": top}
+                del prof, spans
+            del engine
+        first = outs[policies[0]]
+        if any(outs[p] != first for p in policies):
+            fail(f"{arch}: the policies generated different tokens")
+        print(f"{arch}: tokens identical across {policies}; request 0: "
+              f"{list(first[0])}")
         result = {p: {k: v for k, v in m.items() if k != "stats"}
                   | {"stats": vars(m["stats"])} for p, m in metrics.items()}
-        result.update(idle_share=idle_share, kernels_in_drain=in_drain)
+        result.update(traced_result)
         return model, params, result, first
 
     from torch.profiler import ProfilerActivity, profile
@@ -3704,30 +3961,33 @@ def main() -> None:
     print(f"profiler: prefill markers are {marker_name}")
 
     def policies_cut(arch, cfg):
-        """The three policies' drains of ``arch`` at POLICY_DEPTH[arch]
-        layers, whose tokens must be identical (a cut, printed)."""
-        cut = dataclasses.replace(cfg, num_layers=POLICY_DEPTH[arch])
-        model, params, metrics, _ = serve(arch, cut, profiled=False)
+        """The three policies' drains of ``arch`` at POLICY_DEPTH layers,
+        whose tokens must be identical (a cut, printed)."""
+        cut = dataclasses.replace(cfg, num_layers=POLICY_DEPTH)
+        model, params, metrics, _ = serve(arch, cut, profiled=False,
+                                          prompt_len=serve_prompt_len(arch),
+                                          max_seq=serve_max_seq(arch))
         del model, params
         free_device_memory()
-        return metrics | {"layers": POLICY_DEPTH[arch]}
+        return metrics | {"layers": POLICY_DEPTH}
 
     def cut_line(arch, cfg):
         print(f"cut: {arch} round_robin and single_queue drains at "
-              f"{POLICY_DEPTH[arch]} of {cfg.num_layers} layers (token identity across "
-              f"{POLICIES} checked there); the locality drain and its profile at full "
-              f"depth")
+              f"{POLICY_DEPTH} of {cfg.num_layers} layers (token identity across "
+              f"{POLICIES} checked there); the locality drain at full depth")
 
-    def teacher_forced(arch, cfg, model, params, faults=None):
+    def teacher_forced(arch, cfg, model, params, faults=None, prompt_tokens=None):
         """The kernel path against the plain path (``use_kernel=False``) on
-        request 0, teacher-forced with the plain path's greedy tokens: the
+        request 0 (or a prompt of ``prompt_tokens`` tokens from numpy seed
+        0), teacher-forced with the plain path's greedy tokens: the
         prefill's and every decode step's logits must agree within
         ``LOGITS_ATOL[arch]``.  Each of ``faults`` (name -> (module,
-        attribute, a stand-in with a planted error)) runs the plain path the
-        same way with the stand-in in place and must differ from it by more
-        than the limit."""
-        req = requests(cfg, Request)[0]
-        toks = torch.as_tensor(req.tokens, dtype=torch.int64, device=dev)[None]
+        attribute, a stand-in with a planted error), or a list of such)
+        runs the plain path the same way with the stand-ins in place and
+        must differ from it by more than the limit."""
+        prompt = (requests(cfg, Request)[0].tokens if prompt_tokens is None else
+                  np.random.default_rng(0).integers(0, cfg.vocab_size, prompt_tokens))
+        toks = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
         plain_model = build_model(cfg, use_kernel=False)
 
         def run(m, forced=None):
@@ -3756,18 +4016,21 @@ def main() -> None:
         agree = sum(a == b for a, b in zip(kern_chosen, plain_chosen))
         limit = LOGITS_ATOL[arch]
         print(f"{arch} teacher-forced logits in {model.dtype}, kernel vs plain path "
-              f"({len(req.tokens)} prompt tokens, {1 + MAX_NEW} steps, |logits| up "
+              f"({toks.shape[1]} prompt tokens, {1 + MAX_NEW} steps, |logits| up "
               f"to {float(plain_logits.abs().max()):.3f}): max_abs_err "
               f"{float(diff.max()):.6f} (prefill {float(diff[0]):.6f}), limit "
               f"{limit}; greedy choices agree {agree}/{MAX_NEW}")
         fault_gaps = {}
-        for name, (module, attr, fn) in (faults or {}).items():
-            sound = getattr(module, attr)
-            setattr(module, attr, fn)
+        for name, patches in (faults or {}).items():
+            patches = patches if isinstance(patches, list) else [patches]
+            sound = [(module, attr, getattr(module, attr)) for module, attr, _ in patches]
+            for module, attr, fn in patches:
+                setattr(module, attr, fn)
             try:
                 fault_logits, _ = run(plain_model, forced=plain_chosen)
             finally:
-                setattr(module, attr, sound)
+                for module, attr, fn in reversed(sound):
+                    setattr(module, attr, fn)
             fault_gaps[name] = float((fault_logits - plain_logits).abs().max())
             print(f"{arch} planted fault ({name}) vs plain path: max_abs_err "
                   f"{fault_gaps[name]:.6f}, {fault_gaps[name] / limit:.1f}x the limit")
@@ -3784,18 +4047,34 @@ def main() -> None:
 
     stamp(4)
     serving = {}
-    model, params, serving[QWEN], qwen_tokens = serve(QWEN, cfg)
-    stamp("4b")
-    serving[QWEN]["controlled"] = controlled_drains(
-        model, params, cfg, qwen_tokens, path_launches(cfg, N_REQUESTS), counts,
-        zero_counts)
+    print("cut: each profile of phases 4-5f is taken of the locality drain itself, which "
+          "is timed under torch.profiler (no separate profiled drain)")
+    cut_line(QWEN, cfg)
+    model, params, serving[QWEN], _ = serve(QWEN, cfg, policies=("locality",))
     serving[QWEN].update(teacher_forced(QWEN, cfg, model, params))
+    del model, params
+    free_device_memory()
+    stamp("4b")
+    # the three policies and the controlled drains at POLICY_DEPTH layers,
+    # each against the locality drain at that depth
+    print(f"cut: {QWEN}'s control-built and spec-built drains at {POLICY_DEPTH} of "
+          f"{cfg.num_layers} layers, against the locality drain at "
+          f"that depth")
+    cut = dataclasses.replace(cfg, num_layers=POLICY_DEPTH)
+    model, params, metrics, cut_tokens = serve(QWEN, cut, profiled=False)
+    serving[QWEN]["policies_cut_depth"] = metrics | {"layers": POLICY_DEPTH}
+    serving[QWEN]["controlled"] = controlled_drains(
+        model, params, cut, cut_tokens, path_launches(cut, N_REQUESTS), counts, zero_counts)
     del model, params
     free_device_memory()
 
     stamp(5)
     cut_line(RWKV, rcfg)
-    model, params, serving[RWKV], _ = serve(RWKV, rcfg, policies=("locality",))
+    print(f"cut: {RWKV}'s locality drain runs without torch.profiler (its idle share and "
+          f"K4's device time in the drain are not measured; phase 6 times K4 at its "
+          f"prefill and decode shapes)")
+    model, params, serving[RWKV], _ = serve(RWKV, rcfg, policies=("locality",),
+                                            profiled=False)
     # K4 on a decode step from the state a real prefill left in the cache
     caches = model.init_cache(1, MAX_SEQ)
     toks = torch.as_tensor(requests(rcfg, Request)[0].tokens, device=dev)[None]
@@ -3827,7 +4106,11 @@ def main() -> None:
 
     stamp("5b")
     cut_line(GRIFFIN, gcfg)
-    model, params, serving[GRIFFIN], _ = serve(GRIFFIN, gcfg, policies=("locality",))
+    print(f"cut: {GRIFFIN}'s locality drain runs without torch.profiler (its idle share "
+          f"and K5's and K3's device time in the drain are not measured; phase 6 times "
+          f"them at its prefill and decode shapes)")
+    model, params, serving[GRIFFIN], _ = serve(GRIFFIN, gcfg, policies=("locality",),
+                                               profiled=False)
     # K5 on a decode step from the state a real prefill left in the cache
     toks = torch.as_tensor(requests(gcfg, Request)[0].tokens, device=dev)[None]
     _, caches = model.prefill(params, {"tokens": toks}, model.init_cache(1, MAX_SEQ))
@@ -3867,8 +4150,12 @@ def main() -> None:
     # qwen3-moe-30b-a3b whole in bf16, once every earlier model is freed
     qcfg = get_config(QWEN3)
     cut_line(QWEN3, qcfg)
+    print(f"cut: {QWEN3}'s locality drain runs without torch.profiler (its idle share is "
+          f"not measured; the MoE block's device time is split below by CUDA events, and "
+          f"phase 6 times K3 at its shapes)")
     torch.cuda.reset_peak_memory_stats()
-    model, params, serving[QWEN3], _ = serve(QWEN3, qcfg, policies=("locality",))
+    model, params, serving[QWEN3], _ = serve(QWEN3, qcfg, policies=("locality",),
+                                             profiled=False)
     peak = torch.cuda.max_memory_allocated()
     print(f"{QWEN3} bf16, served whole: peak device memory {peak} B ({peak / 1e9:.2f} GB)")
     serving[QWEN3]["peak_bytes"] = peak
@@ -3908,8 +4195,148 @@ def main() -> None:
     del model, params
     free_device_memory()
 
+    # -- 5d, 5f, 5g: the other configurations ----------------------------------
+    # 5g's CPU runs of the serving driver go on in a process of their own
+    # from here, while the card serves
+    cli_cpu_path = pathlib.Path(tempfile.mkdtemp()) / "serve_cpu.json"
+    cli_cpu = multiprocessing.get_context("spawn").Process(
+        target=cpu_serve_runs, args=(str(cli_cpu_path),), daemon=True)
+    cli_cpu.start()
+
+    def serve_arch(arch, acfg, model, params):
+        """Phase 5f's ``locality`` drain of ``arch`` on the model built for
+        it (``acfg``, cut to SERVE_DEPTH[arch]): 12 requests of 32 new
+        tokens, K3 exactly ``drain_k3_launches(acfg)`` times and no plain
+        attention, profiled when the model is whole, with its peak device
+        memory."""
+        stamp(f"5f {arch}")
+        whole = get_config(arch).num_layers
+        if acfg.num_layers != whole:
+            print(f"cut: {arch} served at {acfg.num_layers} of {whole} layers (the whole "
+                  f"model does not fit on one card)")
+        if arch in SERVE_PROMPT_LEN:
+            print(f"cut: {arch} prompts of {serve_prompt_len(arch)[0]}-"
+                  f"{serve_prompt_len(arch)[1]} tokens (seed 0, as phase 4's 128-1024), "
+                  f"max_seq {serve_max_seq(arch)}: its decoder's {WHISPER_CONTEXT} "
+                  f"positions hold the prompt and {MAX_NEW} new tokens")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, m, _ = serve(arch, acfg, policies=("locality",),
+                           profiled=acfg.num_layers == whole, built=(model, params),
+                           prompt_len=serve_prompt_len(arch), max_seq=serve_max_seq(arch))
+        peak = torch.cuda.max_memory_allocated()
+        own = peak - held_before
+        loc = m["locality"]
+        want = drain_k3_launches(acfg)
+        print(f"{arch} 5f drain ({acfg.num_layers} of {whole} layers): wall "
+              f"{loc['wall_s']:.4f} s, {loc['tokens_per_s']:.2f} tokens/s, prefill "
+              f"{loc['prefill_ms_per_request']:.4f} ms per request, decode "
+              f"{loc['decode_ms_per_token']:.4f} ms per token, peak device memory {own} B "
+              f"({own / 1e9:.2f} GB; {peak / 1e9:.2f} GB with the {held_before / 1e9:.2f} GB "
+              f"this script holds from earlier phases)"
+              + (f", idle share {m['idle_share']:.4f}" if "idle_share" in m else "")
+              + f", K3 {loc['launches']['flash_attention']} launches (want {want}), plain "
+              f"attention {loc['launches']['attention_plain_calls']} [{card}]")
+        if loc["launches"]["flash_attention"] != want or \
+                loc["launches"]["attention_plain_calls"]:
+            fail(f"{arch} 5f drain: launches {loc['launches']}, want {want} K3 and no "
+                 f"plain attention")
+        drains[arch] = m | {"layers": acfg.num_layers, "cut_from": whole,
+                            "peak_bytes": own, "peak_bytes_with_script": peak,
+                            "k3_launches_want": want,
+                            "prompt_len": serve_prompt_len(arch),
+                            "max_seq": serve_max_seq(arch)}
+
+    drains: dict = {}
+    # what the script itself holds on the card from here (the paper's
+    # lattice among it), taken out of each drain's peak
+    held_before = torch.cuda.memory_allocated()
     stamp("5d")
-    serving["other_architectures"] = other_archs(dev, build, counts, zero_counts, OTHER_ATOL)
+    serving["other_architectures"] = other_archs(dev, build, counts, zero_counts, OTHER_ATOL,
+                                                 then=serve_arch)
+
+    # gemma3-1b and qwen2-1.5b whole: the drain, then the teacher-forced
+    # comparison on a 1000-token prompt, with two planted faults each in the
+    # plain path
+    causal_mask, decode_attn = attn_model._causal_mask, attn_model.decode_attention
+    direct_attn, rope = attn_model.direct_attention, attn_model.apply_rope
+
+    def ring_slots_as_positions(q, k_cache, v_cache, cache_len, ring=False, window=0):
+        """``decode_attention`` with a ring's slots read as positions in the
+        window (slot > pos - window), the mistake P10 avoids for K3."""
+        if not ring:
+            return decode_attn(q, k_cache, v_cache, cache_len, ring, window)
+        slot = torch.arange(k_cache.shape[1], device=q.device)
+        keep = (slot < cache_len) & (slot > cache_len - 1 - window)
+        return decode_attn(q, k_cache[:, keep], v_cache[:, keep], int(keep.sum()))
+
+    def kv_head_mod(fn):
+        """``fn`` (direct or decode attention) with query head h reading kv
+        head h % Hkv instead of h // group."""
+        def wrong(q, k, *rest, **kw):
+            b, t, h, _ = q.shape
+            kvh = k.shape[2]
+            g = h // kvh
+            perm = torch.tensor([i * kvh + j for j in range(kvh) for i in range(g)],
+                                device=q.device)
+            out = fn(q[:, :, perm], k, *rest, **kw)
+            return out.reshape(b, t, h, -1)[:, :, torch.argsort(perm)].reshape(b, t, -1)
+        return wrong
+
+    def rope_off_k():
+        """``apply_rope`` that leaves every second call's input (the
+        attention block's k, after its q) unrotated."""
+        calls = itertools.count()
+        return lambda x, positions, theta: (rope(x, positions, theta)
+                                            if next(calls) % 2 == 0 else x)
+
+    def tf_faults(arch):
+        """Two planted faults in the plain path of ``arch``, as fresh
+        stand-ins (the rope fault counts its calls)."""
+        if arch == GEMMA:
+            return {"local layers' window dropped at prefill": (
+                        attn_model, "_causal_mask",
+                        lambda tq, tk, q_offset, window=0, device=None:
+                        causal_mask(tq, tk, q_offset, 0, device=device)),
+                    "ring decode reads its slots as positions in the window": (
+                        attn_model, "decode_attention", ring_slots_as_positions)}
+        return {"kv head h % Hkv instead of h // group": [
+                    (attn_model, "direct_attention", kv_head_mod(direct_attn)),
+                    (attn_model, "decode_attention", kv_head_mod(decode_attn))],
+                "rope left off k": (attn_model, "apply_rope", rope_off_k())}
+
+    stamp("5f")
+    for arch in (GEMMA, QWEN15):
+        acfg = serve_config(arch)
+        model, params = build(arch, acfg)
+        serve_arch(arch, acfg, model, params)
+        drains[arch].update(teacher_forced(arch, acfg, model, params, tf_faults(arch),
+                                           prompt_tokens=TF_PROMPT))
+        del model, params
+        free_device_memory()
+
+    # the three policies of each, at POLICY_DEPTH layers: identical tokens.
+    # The commands of 5g, 7i and 9a and 9c's count run in the background
+    # from here (on the host's other cores; none of them is timed)
+    stamp("5f policies")
+    commands = {"serve": start_command(
+        ["-m", "repro_torch.launch.serve", "--arch", CLI_SUBPROCESS_ARCH])}
+    for arch in (RWKV, GRIFFIN):
+        commands[arch] = start_command(["-m", "repro_torch.launch.train", "--arch", arch,
+                                        "--smoke", "--steps", str(CLI_STEPS)])
+    dryrun_started = start_dryrun()
+    print(f"5g's, 7i's and 9a's commands and 9c's count of the plain steps started in the "
+          f"background: {[c[0] for c in (*commands.values(), dryrun_started['dryrun'])]}")
+    for arch in SERVE_DEPTH:
+        print(f"cut: {arch} locality, round_robin and single_queue drains at "
+              f"{POLICY_DEPTH} of {get_config(arch).num_layers} layers (kinds "
+              f"{serve_config(arch, POLICY_DEPTH).layer_kinds()}), for token identity "
+              f"across {POLICIES}")
+        drains[arch]["policies_cut_depth"] = policies_cut(arch, get_config(arch))
+    serving.update(drains)
+
+    stamp("5g")
+    serving["serve_cli"] = serve_cli_phase(card, cli_cpu, cli_cpu_path, commands["serve"])
 
     stamp("5e")
     long_plain = long_prefill(gen, dev, k3_check)
@@ -4100,7 +4527,7 @@ def main() -> None:
     # -- 7. training: K3's backward, the train step, the trainer, resume --
     training, k3_backward = train_phase(dev, card)
     recurrent = recurrent_backward_phase(dev, card)
-    training["archs"] = arch_phase(dev, card)
+    training["archs"] = arch_phase(dev, card, commands)
     training["donation"] = donation_check(dev, card)
     training["recurrent_backward"] = {k: recurrent[k] for k in (
         "wkv6_backward", "rglru_scan_backward")}
@@ -4111,7 +4538,7 @@ def main() -> None:
 
     # -- 9. the dry run and the roofline counter ---------------------------
     stamp(9)
-    roofline = dryrun_phase(dev, card)
+    roofline = dryrun_phase(dev, card, dryrun_started)
 
     # -- 10. result lines -------------------------------------------------
     stamp(10)
@@ -4163,7 +4590,7 @@ def main() -> None:
     # K3 also carries recurrentgemma-9b's local layers, at head dim 256
     kernels[2].update(launches_by_path={
         **{arch: serving[arch]["locality"]["launches"]["flash_attention"]
-           for arch in (QWEN, GRIFFIN, QWEN3)},
+           for arch in (QWEN, GRIFFIN, QWEN3, *SERVE_DEPTH)},
         **{f"examples/torch_{name}.py": distribution["twins"][name]["launches"][
             "flash_attention"] for name in ("serve_router", "control_serving")},
         "sharded train step (1, 1) mesh": distribution["sharded_train_step"]["sharded"][

@@ -15,6 +15,12 @@ to the generated tokens.  Runs on ``cuda`` unless ``--device`` names
 another device.  As in the reference, ``--smoke`` is on by default and
 cannot be switched off (its ``store_true`` has ``default=True``), so the
 driver always serves the reduced config.
+
+The random weights are drawn from a CPU ``torch.Generator`` seeded
+``--seed`` and then moved to the device, so one seed serves one model on
+every device, as ``jax.random.key(seed)`` does in the reference: a CUDA
+generator draws other numbers than a CPU one, and the tokens on the card
+would then differ from those of ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._tree import tree_map
 from ..configs import get_config, reduce_config
 from ..models.model import build_model
 from ..serving.engine import Request, ServingEngine
@@ -40,6 +47,14 @@ def synth_requests(n: int, vocab: int, num_replicas: int,
         home = int(rng.integers(0, num_replicas)) if rng.random() < 0.67 else -1
         reqs.append(Request(uid=i, tokens=toks, max_new=8, home_replica=home))
     return reqs
+
+
+def random_params(cfg, max_pos: int, seed: int, device) -> dict:
+    """The model's random parameters, drawn on the CPU from ``seed`` and
+    moved to ``device``: the same numbers whatever the device."""
+    cpu = build_model(cfg, max_pos=max_pos, device="cpu")
+    return tree_map(lambda t: t.to(device),
+                    cpu.init_params(torch.Generator().manual_seed(seed)))
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -60,7 +75,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.smoke:
         cfg = reduce_config(cfg)
     model = build_model(cfg, max_pos=256, device=dev)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(args.seed))
+    params = random_params(cfg, 256, args.seed, dev)
 
     engine = ServingEngine(model, params, num_replicas=args.replicas,
                            max_seq=64, policy=args.policy, device=dev)

@@ -663,3 +663,36 @@ def test_sweep_times_the_smokes_drain_prompts():
     spec.loader.exec_module(smoke)
     prompts = [len(r.tokens) for r in smoke.requests(configs.get_config(smoke.RWKV), Request)]
     assert tuple(prompts) == sweep.DRAIN_PROMPTS
+
+
+@pytest.mark.parametrize("arch,layers,k3", [
+    ("gemma3-1b", 26, 10_296), ("qwen2-1.5b", 28, 11_088), ("minicpm3-4b", 62, 0),
+    ("whisper-base", 6, 4_752), ("phi3.5-moe-42b-a6.6b", 8, 3_168),
+    ("llama-3.2-vision-90b", 5, 2_376)])
+def test_smokes_serving_drains_of_the_other_configurations(arch, layers, k3):
+    """``chip_smoke.py`` phase 5f's pure helpers, loaded without a card:
+    each drain's depth (the printed cut: phi3.5-moe at 8 and llama-vision
+    at 5 layers, the rest whole; 4 layers for the policies' drains), its
+    K3 launches (12 requests x 33 steps x ``attention_calls``: a "cross"
+    layer counts twice, MLA not at all), and whisper-base's prompts, which
+    with the 32 new tokens stay within its decoder's 448 positions."""
+    import importlib.util
+    import pathlib
+    from repro_torch.serving.engine import Request
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = smoke.serve_config(arch)
+    assert cfg.num_layers == layers
+    assert (layers < configs.get_config(arch).num_layers) == (arch in ("phi3.5-moe-42b-a6.6b",
+                                                                       "llama-3.2-vision-90b"))
+    assert smoke.drain_k3_launches(cfg) == k3
+    assert smoke.serve_config(arch, smoke.POLICY_DEPTH).num_layers == 4
+    lens = [len(r.tokens) for r in smoke.requests(cfg, Request, smoke.serve_prompt_len(arch))]
+    assert len(lens) == smoke.N_REQUESTS == 12 and smoke.MAX_NEW == 32
+    if arch == "whisper-base":
+        assert 64 <= min(lens) and max(lens) + smoke.MAX_NEW <= 448
+        assert smoke.serve_max_seq(arch) == 448
+    else:
+        assert 128 <= min(lens) and max(lens) <= 1024 and smoke.serve_max_seq(arch) == 2048
