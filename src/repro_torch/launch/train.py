@@ -56,7 +56,7 @@ def make_trainer(arch: str, *, smoke: bool = False, steps: int = 100,
         log_fn=log_fn)
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -70,7 +70,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; pass cpu for the CPU)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     out = make_trainer(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
                        seq=args.seq, lr=args.lr, ckpt=args.ckpt,

@@ -20,7 +20,11 @@ the encoder's widths, without a causal mask, with sinusoidal positions and
 no rope) turns ``extras["frames"]`` into the decoder's cross-attention
 input, and its decoder adds learned positions (``dec_pos``); the VLM takes
 ``extras["vision"]`` (patch embeddings already at the decoder's width) as
-its cross-attention input.  MoE and MLA live in ``models/moe.py`` and
+its cross-attention input.  Both extras are cast to the model's dtype
+first, the dtype the reference declares for them (divergence P22):
+``launch.train`` makes them in f32, which PyTorch's matmul would refuse
+in a bf16 model beside bf16 weights (the reference's bf16 model refuses
+them too, in its layer scan).  MoE and MLA live in ``models/moe.py`` and
 ``models/mla.py``.
 
 Sharding: ``param_logical_axes`` gives every parameter leaf
@@ -154,14 +158,15 @@ class Model:
             x = x * self._embed_scale
         x = shard(x, "batch", None, None)
 
+        # frames and image tokens join the stream in the model's dtype (P22)
         cross_x = None
         if cfg.encoder is not None:
             if extras is not None and "frames" in extras:
-                cross_x = self._encode(params, extras["frames"])
+                cross_x = self._encode(params, extras["frames"].to(self.dtype))
             t = tokens.shape[1]
             x = x + params["dec_pos"][pos_offset:pos_offset + t][None]
         elif cfg.vision is not None and extras is not None and "vision" in extras:
-            cross_x = extras["vision"]
+            cross_x = extras["vision"].to(self.dtype)
 
         x, new_caches, aux = apply_stack(
             params["stack"], x, cfg, pos_offset=pos_offset, caches=caches,
