@@ -295,7 +295,8 @@ failure:
    x 448): gemma3-1b,
    qwen2-1.5b and whisper-base whole, minicpm3-4b, qwen3-moe and
    phi3.5-moe at the deepest depth whose 20 B a parameter fit 60 GB
-   (``trainer_depth``: 44, 3 and 2 layers); ms a step, tokens per second,
+   (``trainer_depth``: 44, 3 and 2 layers; minicpm3-4b cut to 22 for the
+   run's time, ``ARCHS_TRAIN_TIME_DEPTH``); ms a step, tokens per second,
    the 6 N tokens bound, K3 launches exact, a peak under 72 GB, finite
    losses with the held-out loss falling 5 % (7d's and 7h's gate without
    the mean of the last steps, which the swings of lr 3e-3 fail)
@@ -348,7 +349,15 @@ failure:
    step's; each step's ms beside its own counted ``t_bound`` on the H100's
    datasheet constants (the plain step's bytes are eager ones at every
    op, the score-sized intermediates included), both shares and
-   ``useful_flops_ratio`` printed, no gate on the shares; 9c
+   ``useful_flops_ratio`` printed, no gate on the shares; the same kernel
+   step counted on ``meta`` tensors in this process, as the dry run counts
+   it (F14: K3 allocates and reports, launches nothing), against the
+   card's count: its kernel records equal record for record (name, flops,
+   bytes), its FLOPs within 1e-9 and bytes within 1 % of the card's
+   totals, its counted peak within 0.98-1.02 of the kernel step's
+   ``max_memory_allocated``; and K3's meta table of blocks per SM
+   (``kernel.H100_BLOCKS_PER_SM``) equal to the library's answer for every
+   compiled variant; 9c
    (``kernel_report_phase``) holds the other kernels' reports: the paper's
    ``run_runtime_sweep`` (2400x600x600, ``di = 10``) counted on the card
    gives exactly 240 ``kernel.K1`` records whose bytes are the slabs'
@@ -360,7 +369,10 @@ failure:
    kernel's forward and backward records equal its launch counters; the
    counted FLOPs and bytes beside the plain step's count on ``meta``
    tensors (counted in a process of its own from 5f on), and the
-   kernel step's share of its own bound, no gate;
+   kernel step's share of its own bound, no gate; both kernel steps
+   counted on ``meta`` tensors held to the card's count and peak under
+   9b's gates, and K4's backward workspace as the meta path sizes it
+   (``kernel.bwd_workspace_floats``) equal to the library's;
 10. print the ``serving``, ``training``, ``distribution``, ``roofline`` and
    ``kernels`` JSON lines, the card's name and power limit, and last the
    ``{"ok": true, ...}`` line.
@@ -2715,6 +2727,10 @@ ARCHS_TRAIN_SEQ = {WHISPER: WHISPER_CONTEXT}
 ARCHS_TRAIN_WHOLE = (GEMMA, QWEN15, WHISPER)
 TRAIN_BYTES_PER_PARAM = 20
 ARCHS_TRAIN_STATE, ARCHS_TRAIN_PEAK = 60e9, 72e9
+# trainers cut below trainer_depth for the run's time: minicpm3-4b's plain
+# MLA steps are host-bound (at 44 layers its trainer took 66 s of 7k on a
+# slow host, H100 80GB HBM3), and half of them pays for phase 9's meta counts
+ARCHS_TRAIN_TIME_DEPTH = {MINICPM: 22}
 # (c) launch.train.main for every configuration, reduced, on the card
 ARCHS_CLI_STEPS = 20
 
@@ -2812,18 +2828,24 @@ def archs_train_phase(dev, card) -> dict:
         stamp(f"7k {arch} trainer")
         base = get_config(arch)
         depth, n_est, n_next = trainer_depth(base)
-        tcfg = base if depth == base.num_layers else dataclasses.replace(base, num_layers=depth)
         if arch in ARCHS_TRAIN_WHOLE and depth != base.num_layers:
             fail(f"{arch}: whole it needs {TRAIN_BYTES_PER_PARAM * n_est / 1e9:.1f} GB of "
                  f"train state, above {ARCHS_TRAIN_STATE / 1e9:.0f} GB")
+        budget = (f" (a cut: {n_est} params need {TRAIN_BYTES_PER_PARAM * n_est / 1e9:.1f} GB "
+                  f"of donated train state at {TRAIN_BYTES_PER_PARAM} B a param, one more "
+                  f"layer {TRAIN_BYTES_PER_PARAM * n_next / 1e9:.1f} GB, above the "
+                  f"{ARCHS_TRAIN_STATE / 1e9:.0f} GB budget)")
+        if ARCHS_TRAIN_TIME_DEPTH.get(arch, depth) < depth:
+            print(f"cut: {arch} trainer at {ARCHS_TRAIN_TIME_DEPTH[arch]} of "
+                  f"{base.num_layers} layers, where {depth} fit the "
+                  f"{ARCHS_TRAIN_STATE / 1e9:.0f} GB budget: its plain MLA steps are "
+                  f"host-bound, and the other layers' time pays for phase 9's meta counts")
+            depth, budget = ARCHS_TRAIN_TIME_DEPTH[arch], " (a cut for time, printed above)"
+        tcfg = base if depth == base.num_layers else dataclasses.replace(base, num_layers=depth)
         seq = ARCHS_TRAIN_SEQ.get(arch, 1024)
         steps, bsz = ARCHS_TRAIN_STEPS, ARCHS_TRAIN_BATCH
         print(f"{arch} trainer: {tcfg.num_layers} of {base.num_layers} layers at full width"
-              + (" (whole)" if depth == base.num_layers else
-                 f" (a cut: {n_est} params need {TRAIN_BYTES_PER_PARAM * n_est / 1e9:.1f} GB "
-                 f"of donated train state at {TRAIN_BYTES_PER_PARAM} B a param, one more "
-                 f"layer {TRAIN_BYTES_PER_PARAM * n_next / 1e9:.1f} GB, above the "
-                 f"{ARCHS_TRAIN_STATE / 1e9:.0f} GB budget)")
+              + (" (whole)" if depth == base.num_layers else budget)
               + f", {steps} steps of {bsz} x {seq}, {tcfg.microbatches} microbatches, AdamW "
               f"lr {TRAIN_LR} with {ARCHS_TRAIN_WARMUP} warmup steps", flush=True)
         free_device_memory()
@@ -3160,6 +3182,11 @@ T_START = time.perf_counter()
 DRYRUN_CELLS = ("qwen2-0.5b", "train_4k,decode_32k")
 MEMORY_RATIO = (0.98, 1.02)
 KERNEL_FLOPS_RATIO = (0.85, 1.0)
+# 9b-9c: the kernel step counted on meta tensors (F14: the dry run's path)
+# against the same step counted as it runs on the card: the kernel records
+# equal, record for record; the totals' FLOPs to META_FLOPS_RTOL and bytes
+# to META_BYTES_RTOL; its counted peak within MEMORY_RATIO of the card's
+META_FLOPS_RTOL, META_BYTES_RTOL = 1e-9, 0.01
 # 9c: every kernel's wrapper reports its launches (op_cost.kernel_launch).
 # The paper's runtime sweep: 240 slab launches of K1, each reading its 10
 # rows and its halo planes (2878 planes in all) and writing its rows (2400),
@@ -3203,7 +3230,7 @@ def dryrun_phase(dev, card, started) -> dict:
     from repro_torch.kernels.flash_attention import kernel as k3
     from repro_torch.models.model import build_model
     from repro_torch.roofline.analysis import analyze, model_flops_train
-    from repro_torch.roofline.op_cost import OpCounter, measure
+    from repro_torch.roofline.op_cost import measure
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import make_train_step
 
@@ -3251,6 +3278,17 @@ def dryrun_phase(dev, card, started) -> dict:
 
     # -- 9b. the counter against the card ------------------------------------
     stamp("9b")
+    # the meta path's split plan reads K3's occupancy from a table (F14):
+    # every compiled bf16 variant's blocks per SM as the library answers
+    lib = k3._lib()
+    blocks = {f"{rows},{hd}": lib.flash_attention_blocks_per_sm(rows, hd)
+              for rows, hd in k3.H100_BLOCKS_PER_SM}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"9b: K3's blocks per SM by (rows, hd), the library's: {blocks} on {sms} SMs; "
+          f"the meta table's: {k3.H100_BLOCKS_PER_SM} on {k3.H100_SMS}")
+    if blocks != {f"{r},{hd}": n for (r, hd), n in k3.H100_BLOCKS_PER_SM.items()} or \
+            sms != k3.H100_SMS:
+        fail("9b: K3's meta table of blocks per SM is not the library's answer")
     cfg = get_config(arch)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"9b: {arch} {cfg.dtype}, full width, remat {cfg.remat}, {TRAIN_BATCH} x "
@@ -3278,15 +3316,7 @@ def dryrun_phase(dev, card, started) -> dict:
     warm = pstep(params, opt, batch)          # cuBLAS workspace, the allocator's pools
     torch.cuda.synchronize()
     del warm
-    gc.collect()
-    arg_bytes = OpCounter().track((params, opt, batch))
-    other = torch.cuda.memory_allocated() - arg_bytes
-    torch.cuda.reset_peak_memory_stats()
-    res = pstep(params, opt, batch)
-    torch.cuda.synchronize()
-    card_peak = torch.cuda.max_memory_allocated() - other
-    del res
-    gc.collect()
+    card_peak, other = card_step_peak(pstep, params, opt, batch)
     ratio = card_peak / counter.peak
     print(f"9b: peak of the plain step: card {card_peak / 1e9:.3f} GB "
           f"(max_memory_allocated less {other / 1e9:.3f} GB allocated before it that "
@@ -3330,6 +3360,11 @@ def dryrun_phase(dev, card, started) -> dict:
           f"forward, {reported[1]} backward")
     if not KERNEL_FLOPS_RATIO[0] <= flops_ratio <= KERNEL_FLOPS_RATIO[1]:
         fail(f"9b: the kernel step's count is {flops_ratio:.4f} of the plain step's FLOPs")
+    # F14: the same kernel step counted on meta tensors, as the dry run
+    # counts it, held to the card's count and peak
+    kmeta, kmeta_s = count_kernel_step_on_meta(cfg, batch, TRAIN_SEQ)
+    kpeak, _ = card_step_peak(kstep, params, opt, batch)
+    meta_gates = hold_meta_to_card(f"9b: {arch}", kcounter, kmeta, kmeta_s, kpeak, card)
     k3.flash_attention.launches = k3.flash_attention_backward.launches = 0
     kernel_ms = step_ms(kstep)
     launched = (k3.flash_attention.launches // 4, k3.flash_attention_backward.launches // 4)
@@ -3350,13 +3385,91 @@ def dryrun_phase(dev, card, started) -> dict:
         "kernel_step_t_bound_ms": kbound_ms, "kernel_step_bottleneck": kroof.bottleneck,
         "kernel_count_s": kcount_s,
         "share_plain_own_bound": bound_ms / plain_ms,
-        "share_kernel_own_bound": kbound_ms / kernel_ms}
+        "share_kernel_own_bound": kbound_ms / kernel_ms, "meta_kernel_step": meta_gates,
+        "k3_blocks_per_sm": blocks}
     del params, opt, pmodel, kstep
     free_device_memory()
     out["kernel_reports"] = kernel_report_phase(dev, card, counting, plain_counts)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 9: {out['seconds']:.1f} s ({card})")
     return out
+
+
+def count_kernel_step_on_meta(cfg, batch: dict, seq: int):
+    """The kernel path of ``cfg``'s train step (``use_kernel=True``, not
+    donated, as 9b and 9c run it on the card) counted on ``meta`` tensors
+    in this process, every microbatch run: K3, K4 and K5 walk their CUDA
+    paths without launching (F14).  Returns (counter, seconds)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.roofline.op_cost import measure
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    model = build_model(cfg, max_pos=seq, device="cpu")
+    p_abs = model.abstract_params()
+    b_abs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    t0 = time.perf_counter()
+    _, counter = measure(make_train_step(model), p_abs, init_opt_state(p_abs), b_abs,
+                         record=True)
+    return counter, time.perf_counter() - t0
+
+
+def card_step_peak(step, params, opt, batch) -> tuple[int, int]:
+    """(peak, other): ``torch.cuda.max_memory_allocated`` of one ``step``
+    on the card less ``other``, the bytes allocated before it that are not
+    its arguments (the allocator's pools warmed by an earlier call)."""
+    from repro_torch.roofline.op_cost import OpCounter
+
+    gc.collect()
+    arg_bytes = OpCounter().track((params, opt, batch))
+    other = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    res = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    del res
+    gc.collect()
+    return peak, other
+
+
+def hold_meta_to_card(what: str, on_card, on_meta, meta_s: float, card_peak: int,
+                      card: str) -> dict:
+    """9b-9c's gates on one kernel step: its count on ``meta`` tensors
+    (``on_meta``) against its count as it ran on the card (``on_card``),
+    both ``OpCounter``s with records: the kernel records equal record for
+    record (name, flops, bytes), the totals within ``META_FLOPS_RTOL`` and
+    ``META_BYTES_RTOL``, the meta peak within ``MEMORY_RATIO`` of
+    ``card_peak``."""
+    def kernel_records(counter):
+        return sorted((r.op, r.flops, r.bytes) for r in counter.records
+                      if r.op.startswith("kernel."))
+    on, off = kernel_records(on_card), kernel_records(on_meta)
+    flops_gap = abs(on_meta.cost.flops - on_card.cost.flops) / on_card.cost.flops
+    bytes_gap = abs(on_meta.cost.bytes - on_card.cost.bytes) / on_card.cost.bytes
+    ratio = card_peak / on_meta.peak
+    names = sorted({r[0] for r in on})
+    print(f"{what}: the kernel step counted on meta tensors in {meta_s:.1f} s: "
+          f"{on_meta.cost.flops:.6e} FLOPs (card {on_card.cost.flops:.6e}, gap {flops_gap:.3e}; "
+          f"limit {META_FLOPS_RTOL}), {on_meta.cost.bytes:.6e} B (card "
+          f"{on_card.cost.bytes:.6e}, gap {bytes_gap:.3e}; limit {META_BYTES_RTOL}); "
+          f"{len(off)} kernel records ({', '.join(f'{n} {sum(r[0] == n for r in off)}' for n in names)}), "
+          f"{'equal' if on == off else 'NOT equal'} to the card's {len(on)}; counted peak "
+          f"{on_meta.peak / 1e9:.3f} GB against the card's {card_peak / 1e9:.3f} GB: ratio "
+          f"{ratio:.4f} (limits {MEMORY_RATIO}) [{card}]")
+    if on != off:
+        diff = [(a, b) for a, b in itertools.zip_longest(on, off) if a != b][:4]
+        fail(f"{what}: the meta kernel records differ from the card's: {diff}")
+    if not on:
+        fail(f"{what}: no kernel record in the kernel step")
+    if flops_gap > META_FLOPS_RTOL or bytes_gap > META_BYTES_RTOL:
+        fail(f"{what}: the meta count's FLOPs gap {flops_gap:.3e}, bytes gap {bytes_gap:.3e}")
+    if not MEMORY_RATIO[0] <= ratio <= MEMORY_RATIO[1]:
+        fail(f"{what}: the card's kernel-step peak is {ratio:.4f} of the meta count's")
+    return {"meta_flops": on_meta.cost.flops, "meta_bytes": on_meta.cost.bytes,
+            "card_flops": on_card.cost.flops, "card_bytes": on_card.cost.bytes,
+            "flops_gap": flops_gap, "bytes_gap": bytes_gap, "kernel_records": len(off),
+            "meta_peak_bytes": on_meta.peak, "card_peak_bytes": card_peak,
+            "peak_ratio": ratio, "meta_count_s": meta_s}
 
 
 def count_plain_steps(path: str) -> None:
@@ -3513,6 +3626,21 @@ def kernel_report_phase(dev, card, counting, plain_counts) -> dict:
         kind = "K4" if arch == RWKV else "K5"
         if reported != launched or not reported[kind] or not reported[f"{kind} backward"]:
             fail(f"9c: {arch}: kernel records {reported}, launch counters {launched}")
+        if arch == RWKV:
+            # the meta path sizes K4's backward workspace in Python (F14)
+            lib = k4._bwd_lib()
+            h, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+            sizes = {(b, t, chunk): (lib.wkv6_bwd_workspace_floats(b, t, h, hd, chunk),
+                                     k4.bwd_workspace_floats(b, t, h, hd, chunk))
+                     for b, t in ((bsz // cfg.microbatches, ARCH_TRAIN_SEQ), (2, 65), (1, 1))
+                     for chunk in k4.BWD_CHUNKS}
+            print(f"9c: K4's backward workspace floats (library, Python) at H {h}, hd {hd} "
+                  f"by (B, T, chunk): {sizes}")
+            if any(a != b for a, b in sizes.values()):
+                fail(f"9c: K4's backward workspace in Python differs from the library's: {sizes}")
+        kmeta, kmeta_s = count_kernel_step_on_meta(cfg, batch, ARCH_TRAIN_SEQ)
+        kpeak, _ = card_step_peak(step, params, opt, batch)
+        meta_gates = hold_meta_to_card(f"9c: {arch}", counter, kmeta, kmeta_s, kpeak, card)
 
         proof = plain[arch]
         r = step(params, opt, batch)          # warm
@@ -3540,7 +3668,7 @@ def kernel_report_phase(dev, card, counting, plain_counts) -> dict:
             "kernel_ms": kernel_ms, "share_kernel_own_bound": kbound_ms / kernel_ms,
             "plain_step_flops": proof["flops"], "plain_step_bytes": proof["bytes"],
             "plain_step_t_bound_ms": proof["t_bound_ms"], "count_s": count_s,
-            "plain_count_s": proof["seconds"]}
+            "plain_count_s": proof["seconds"], "meta_kernel_step": meta_gates}
         del model, params, opt, step, counter
         free_device_memory()
     out["seconds"] = time.perf_counter() - t_phase

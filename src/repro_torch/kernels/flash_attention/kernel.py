@@ -31,6 +31,14 @@ and an input requires grad, so serving launches K3 exactly as before.
 Each launch on the card is reported to ``roofline.op_cost``'s active
 counters (:func:`_report`): its operands read once, its results written
 once, and the products' flops of the pairs the mask lets through.
+
+On ``meta`` tensors (``_device.kernel_path``: the dry run, the counted
+steps) every entry walks the CUDA path without launching: it allocates
+what the launch would (results, statistics, the split's partials and
+tickets, the backward's delta) with the same shapes, dtypes and strides,
+reports the launch as the card does, and never loads the library.  The
+split plan then reads the H100's occupancy from :data:`H100_BLOCKS_PER_SM`
+in place of the library's answer.
 """
 from __future__ import annotations
 
@@ -39,8 +47,10 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 
+from ..._device import kernel_path
 from ...roofline import op_cost
 from .. import _build
 from .ref import mha_ref
@@ -52,6 +62,13 @@ MAX_SPLITS = 64                   # key-range chunks per row tile
 # flops per visible (query head, query, key) pair and head dim: forward two
 # products (4), backward five (10); the reports and chip_smoke.py's bounds
 FWD_FLOPS_PER_PAIR, BWD_FLOPS_PER_PAIR = 4, 10
+# the H100's SMs, and the blocks of each bf16 variant (rows, hd) one SM
+# holds at once as the compiled library answers
+# (``flash_attention_blocks_per_sm``; chip_smoke.py's phase 9 holds this
+# table to it): the split plan of a meta call, which loads no library
+H100_SMS = 132
+H100_BLOCKS_PER_SM = {(16, 16): 4, (16, 32): 4, (16, 64): 4, (16, 128): 3, (16, 256): 1,
+                      (64, 16): 4, (64, 32): 3, (64, 64): 3, (64, 128): 2, (64, 256): 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,13 +97,14 @@ def key_range(t0: int, t1: int, tk: int, *, causal: bool, window: int,
 
 
 def visible_pairs(tq: int, tk: int, *, causal: bool, window: int, q_offset: int) -> int:
-    """The (query, key) pairs the mask lets through, per query head."""
+    """The (query, key) pairs the mask lets through, per query head (in
+    numpy, so that a counter open around a launch sees no op of it)."""
     if not causal:
         return tq * tk
-    t = torch.arange(tq, dtype=torch.int64) + q_offset
-    hi = (t + 1).clamp(0, tk)
-    lo = (t - window + 1).clamp(0, tk) if window > 0 else torch.zeros_like(t)
-    return int((hi - lo).clamp(min=0).sum())
+    t = np.arange(tq, dtype=np.int64) + q_offset
+    hi = np.clip(t + 1, 0, tk)
+    lo = np.clip(t - window + 1, 0, tk) if window > 0 else np.zeros_like(t)
+    return int(np.clip(hi - lo, 0, None).sum())
 
 
 def _report(name: str, reads, writes, q, k, *, causal, window, q_offset, per_pair):
@@ -176,6 +194,11 @@ def _slots(index: int, rows: int, hd: int) -> int:
     return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of ``x``'s device (0 for a meta tensor)."""
+    return 0 if x.is_meta else torch.cuda.current_stream(x.device).cuda_stream
+
+
 # One ticket per row tile of a split call, zero between launches (the
 # kernel's last block of each row tile resets its own).  Kept per (device,
 # stream) at its largest size and reused: launches on one stream run one
@@ -199,9 +222,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"flash_attention takes float32 or bfloat16, "
                             f"{name} is {x.dtype}")
-        if x.device.type not in ("cpu", "cuda") or x.device != q.device:
-            raise ValueError(f"flash_attention runs on one cuda device (or cpu "
-                             f"for the plain version); {name} is on {x.device}")
+        if x.device.type not in ("cpu", "cuda", "meta") or x.device != q.device:
+            raise ValueError(f"flash_attention runs on one cuda device (cpu for "
+                             f"the plain version, meta to count it); {name} is "
+                             f"on {x.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -226,9 +250,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Hq, Tq, hd); k, v (B, Hkv, Tk, hd) -> (B, Hq, Tq, hd).
 
     Requires Tq % bq == 0 and Tk % bk == 0, as the reference does.  A CUDA
-    tensor launches the kernel; a CPU tensor takes the plain version
-    (``mha_ref``).  On the card the inputs may be any strided views whose
-    last dim is contiguous (the model passes transposed (B, T, H, hd)
+    tensor launches the kernel, a meta tensor counts it (no launch); a CPU
+    tensor takes the plain version (``mha_ref``).  On the card the inputs
+    may be any strided views whose last dim is contiguous (the model passes
+    transposed (B, T, H, hd)
     projections and cache views); in bf16 every row must also start on 16
     bytes (``ValueError`` otherwise: the kernel copies rows 16 bytes at a
     time and has no slower path).  The result lies in (B, Tq, Hq, hd)
@@ -240,7 +265,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hkv, tk = k.shape[1], k.shape[2]
     if tq % bq or tk % bk:
         raise ValueError(f"seq lens ({tq},{tk}) not divisible by blocks ({bq},{bk})")
-    if q.device.type == "cpu":
+    if not kernel_path(q):
         return mha_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     group = hq // hkv
     if hd not in HEAD_DIMS:
@@ -262,15 +287,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if bf16:
         _run_planned(q, k, v, out, causal=causal, window=window, q_offset=q_offset)
-    else:
+    elif not q.is_meta:
         lib = _lib()
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, tq, tk, hd, _strides(q, k, v, out), int(causal), int(window),
-            int(q_offset), hd ** -0.5, max(1, MAX_ROWS // group),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(q_offset), hd ** -0.5, max(1, MAX_ROWS // group), _stream(q))
         _build.check(lib, err, "flash_attention_f32_kernel launch")
-    flash_attention.launches += 1
+    if not q.is_meta:
+        flash_attention.launches += 1
     _report("K3", (q, k, v), (out,), q, k, causal=causal, window=window,
             q_offset=q_offset, per_pair=FWD_FLOPS_PER_PAIR)
     return out
@@ -288,7 +313,9 @@ def _run_planned(q, k, v, out, *, causal, window, q_offset, lse=None, o32=None) 
     b, hq, tq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     rows = variant(hq, hkv, tq, hd)[0]
-    plan = split_plan(b, hq, hkv, tq, tk, hd, slots=_slots(q.device.index or 0, rows, hd),
+    slots = H100_SMS * H100_BLOCKS_PER_SM[rows, hd] if q.is_meta else \
+        _slots(q.device.index or 0, rows, hd)
+    plan = split_plan(b, hq, hkv, tq, tk, hd, slots=slots,
                       causal=bool(causal), window=window, q_offset=q_offset)
     run_bf16(q, k, v, out, plan, causal=causal, window=window, q_offset=q_offset,
              lse=lse, o32=o32)
@@ -304,8 +331,8 @@ def forward_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch, and :func:`flash_attention_backward` calls this when it is not
     handed the statistics."""
     _check(q, k, v)
-    if q.dtype != torch.bfloat16 or q.device.type != "cuda":
-        raise TypeError("forward_with_stats takes bfloat16 CUDA tensors")
+    if q.dtype != torch.bfloat16 or not kernel_path(q):
+        raise TypeError("forward_with_stats takes bfloat16 CUDA (or meta) tensors")
     b, hq, tq, hd = q.shape
     if hd not in HEAD_DIMS or hq // k.shape[1] > MAX_ROWS:
         raise ValueError(f"head dim {hd} or group {hq // k.shape[1]} not compiled")
@@ -332,16 +359,19 @@ def run_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
     cut as ``plan`` says (the wrapper passes :func:`split_plan`'s; the
     chunk-size sweep passes others); ``lse`` and ``o32`` (out's strides)
     receive :func:`forward_with_stats`'s statistics when given.  Counts
-    nothing."""
+    nothing; on meta tensors allocates the split's partials and tickets
+    and launches nothing."""
     b, hq, tq, hd = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q)
     ws = tickets = None
     if plan.splits > 1:
         tiles = b * hkv * plan.row_tiles
         ws = torch.empty(tiles * plan.splits * plan.rows * (2 + hd),
                          dtype=torch.float32, device=q.device)
         tickets = _tickets(q.device, stream, tiles)
+    if q.is_meta:
+        return
     lib = _lib()
     err = lib.flash_attention_bf16_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -380,14 +410,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them this call runs K3's forward once more to make them.  In f32 they
     recompute what they need (each row's log-sum-exp and rowsum(P o dP))
     and ``stats`` is ignored.  A CUDA tensor launches the backward kernels
-    (head dims ``HEAD_DIMS``, ``ValueError`` otherwise); a CPU tensor takes
-    the plain version, autograd through ``mha_ref``."""
+    (head dims ``HEAD_DIMS``, ``ValueError`` otherwise), a meta tensor
+    counts them; a CPU tensor takes the plain version, autograd through
+    ``mha_ref``."""
     _check(q, k, v)
     b, hq, tq, hd = q.shape
     if dout.shape != q.shape:
         raise ValueError(f"dout must be q's shape {tuple(q.shape)}; got "
                          f"{tuple(dout.shape)}")
-    if q.device.type == "cpu":
+    if not kernel_path(q):
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
             o = mha_ref(*leaves, causal=causal, window=window, q_offset=q_offset)
@@ -418,19 +449,20 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse, o32 = stats
     else:
         lse, o32 = torch.empty_like(delta), None
-    hkv, tk = k.shape[1], k.shape[2]
-    xs = (q, k, v, dout, dq, dk, dv)
-    strides = (ctypes.c_longlong * 24)(
-        *(x.stride(i) for x in xs for i in range(3)),
-        *((o32.stride(i) for i in range(3)) if o32 is not None else (0, 0, 0)))
-    lib = _bwd_lib()
-    err = lib.flash_attention_bwd_launch(
-        *(x.data_ptr() for x in xs), lse.data_ptr(), delta.data_ptr(),
-        None if o32 is None else o32.data_ptr(),
-        b, hq, hkv, tq, tk, hd, strides, int(causal), int(window), int(q_offset),
-        hd ** -0.5, int(bf16), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention backward launch")
-    flash_attention_backward.launches += 1
+    if not q.is_meta:
+        hkv, tk = k.shape[1], k.shape[2]
+        xs = (q, k, v, dout, dq, dk, dv)
+        strides = (ctypes.c_longlong * 24)(
+            *(x.stride(i) for x in xs for i in range(3)),
+            *((o32.stride(i) for i in range(3)) if o32 is not None else (0, 0, 0)))
+        lib = _bwd_lib()
+        err = lib.flash_attention_bwd_launch(
+            *(x.data_ptr() for x in xs), lse.data_ptr(), delta.data_ptr(),
+            None if o32 is None else o32.data_ptr(),
+            b, hq, hkv, tq, tk, hd, strides, int(causal), int(window), int(q_offset),
+            hd ** -0.5, int(bf16), _stream(q))
+        _build.check(lib, err, "flash_attention backward launch")
+        flash_attention_backward.launches += 1
     _report("K3 backward", (q, k, v, dout, lse, o32), (dq, dk, dv, delta), q, k,
             causal=causal, window=window, q_offset=q_offset, per_pair=BWD_FLOPS_PER_PAIR)
     return dq, dk, dv
@@ -447,10 +479,11 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
-        if q.dtype == torch.bfloat16 and q.device.type == "cuda":
+        if q.dtype == torch.bfloat16 and kernel_path(q):
             out, lse, o32 = forward_with_stats(q, k, v, causal=causal, window=window,
                                                q_offset=q_offset)
-            flash_attention.launches += 1
+            if not q.is_meta:
+                flash_attention.launches += 1
             _report("K3", (q, k, v), (out, lse, o32), q, k, causal=causal,
                     window=window, q_offset=q_offset, per_pair=FWD_FLOPS_PER_PAIR)
             ctx.save_for_backward(q, k, v, lse, o32)

@@ -3,8 +3,9 @@
 
 ``use_kernel`` is the reference's ``use_pallas`` renamed, and ``interpret``
 is gone: it has no meaning here.  With ``use_kernel=True`` a CUDA tensor
-goes to the Hopper kernel (K3) or raises, and a CPU tensor to the plain
-version; ``use_kernel=False`` asks for the plain version on any device.
+goes to the Hopper kernel (K3) or raises, a meta tensor is counted as K3
+(no launch), and a CPU tensor goes to the plain version;
+``use_kernel=False`` asks for the plain version on any device.
 
 It mirrors the reference's public entry and layout.  The model does not
 call it: ``models.attention`` hands K3 strided (B, T, H, hd) views with

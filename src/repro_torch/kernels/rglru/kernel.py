@@ -31,6 +31,11 @@ Every launch of either is reported to ``roofline.op_cost``'s active
 counters (:func:`_report`): the tensors it reads and writes, each once,
 and ``FWD_FLOPS`` or ``BWD_FLOPS`` per element, the counts behind
 ``chip_smoke.py``'s bounds.
+
+On ``meta`` tensors (``_device.kernel_path``: the dry run, the counted
+steps) both walk the CUDA path without launching: they allocate the
+results the launch would write, report it as the card does, and never
+load the library.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ import functools
 
 import torch
 
+from ..._device import kernel_path
 from ...roofline import op_cost
 from .. import _build
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
@@ -92,9 +98,9 @@ def _check(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> None:
                          f"{(a.shape[0], a.shape[2])}")
     tensors = [x for x in (a, b, h0) if x is not None]
     if any(x.device != a.device for x in tensors) or \
-            a.device.type not in ("cpu", "cuda"):
-        raise ValueError("rglru_scan runs on one cuda device (or cpu for the "
-                         "plain version)")
+            a.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError("rglru_scan runs on one cuda device (cpu for the "
+                         "plain version, meta to count it)")
 
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
@@ -102,7 +108,8 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
     """a, b: (B, T, W); h0: (B, W) or None (zero).  Returns h (B, T, W).
 
     Requires T % chunk == 0, as the reference does.  A CUDA tensor launches
-    the kernel; a CPU tensor takes the plain version (``rglru_scan_ref``).
+    the kernel, a meta tensor counts it (no launch); a CPU tensor takes the
+    plain version (``rglru_scan_ref``).
     On the card a, b and h0 are float32 and contiguous; when grad mode is
     on and one of them requires grad, the call runs as :class:`RGLRUScanFn`
     (the same launch, with K5's backward behind it).
@@ -111,7 +118,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, chunk: int = 128,
     bt, t, w = a.shape
     if t % chunk:
         raise ValueError(f"T={t} not divisible by chunk={chunk}")
-    if a.device.type == "cpu":
+    if not kernel_path(a):
         return rglru_scan_ref(a, b, h0)
     _check_card(a, b, h0)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad
@@ -136,17 +143,19 @@ def _check_card(*xs) -> None:
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
-    """One K5 launch on checked CUDA tensors, counted."""
+    """One K5 launch on checked CUDA tensors, counted (on meta tensors
+    reported, not launched)."""
     bt, t, w = a.shape
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    lib = _lib()
-    err = lib.rglru_launch(a.data_ptr(), b.data_ptr(),
-                           None if h0 is None else h0.data_ptr(), out.data_ptr(),
-                           bt, t, w, torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, err, "rglru_kernel launch")
-    rglru_scan_cuda.launches += 1
+    if not a.is_meta:
+        lib = _lib()
+        err = lib.rglru_launch(a.data_ptr(), b.data_ptr(),
+                               None if h0 is None else h0.data_ptr(), out.data_ptr(),
+                               bt, t, w, torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(lib, err, "rglru_kernel launch")
+        rglru_scan_cuda.launches += 1
     _report("K5", (a, b, h0), (out,), FWD_FLOPS)
     return out
 
@@ -156,11 +165,12 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     """(da, db, dh0) of ``h = rglru_scan_cuda(a, b, h0=h0)`` for the
     gradient ``dh`` of h (dh0 None when h0 is None).  A CUDA tensor
     launches K5's backward (float32, any contiguous layout of dh is copied
-    first); a CPU tensor takes the plain version, ``rglru_scan_bwd_ref``."""
+    first), a meta tensor counts it; a CPU tensor takes the plain version,
+    ``rglru_scan_bwd_ref``."""
     _check(a, h, h0)
     if dh.shape != a.shape:
         raise ValueError(f"dh is {tuple(dh.shape)}, a is {tuple(a.shape)}")
-    if a.device.type == "cpu":
+    if not kernel_path(a):
         return rglru_scan_bwd_ref(a, h, dh, h0)
     dh = dh.float().contiguous()
     _check_card(a, h, dh, h0)
@@ -169,13 +179,14 @@ def rglru_scan_backward(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     dh0 = None if h0 is None else torch.empty_like(h0)
     if a.numel() == 0:
         return da, db, None if dh0 is None else dh0.zero_()
-    lib = _bwd_lib()
-    err = lib.rglru_bwd_launch(
-        a.data_ptr(), h.data_ptr(), dh.data_ptr(), None if h0 is None else h0.data_ptr(),
-        da.data_ptr(), db.data_ptr(), None if dh0 is None else dh0.data_ptr(), bt, t, w,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(lib, err, "rglru_bwd_kernel launch")
-    rglru_scan_backward.launches += 1
+    if not a.is_meta:
+        lib = _bwd_lib()
+        err = lib.rglru_bwd_launch(
+            a.data_ptr(), h.data_ptr(), dh.data_ptr(), None if h0 is None else h0.data_ptr(),
+            da.data_ptr(), db.data_ptr(), None if dh0 is None else dh0.data_ptr(), bt, t, w,
+            torch.cuda.current_stream(a.device).cuda_stream)
+        _build.check(lib, err, "rglru_bwd_kernel launch")
+        rglru_scan_backward.launches += 1
     _report("K5 backward", (a, h, dh, h0), (da, db, dh0), BWD_FLOPS)
     return da, db, dh0
 

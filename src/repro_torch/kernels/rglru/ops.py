@@ -8,7 +8,8 @@ Hopper kernel takes any T, so no length falls back to the associative
 scan.  So a reference-style ``rglru_scan(a, b, False)`` takes the plain
 path, as the reference's does, and a fourth positional argument raises
 ``TypeError``.  With ``use_kernel=True`` a CUDA tensor goes to K5 or
-raises, and a CPU tensor to the plain version; ``use_kernel=False`` asks
+raises, a meta tensor is counted as K5 (no launch), and a CPU tensor
+goes to the plain version; ``use_kernel=False`` asks
 for the plain version on any device.  Beyond the reference, the
 keyword-only ``h0`` carries a state in (the model's decode step and a
 prefill from a cache).  On a CUDA tensor in grad mode (training) the

@@ -42,7 +42,15 @@ plain PyTorch.
 Every launch of either is reported to ``roofline.op_cost``'s active
 counters (:func:`_report`): the tensors it reads and writes, each once
 (the scratch and the workspace not), and ``FWD_FLOPS`` or ``BWD_FLOPS``
-per (b, t, h, i, j), the counts behind ``chip_smoke.py``'s bounds.
+per (b, t, h, i, j), the counts behind ``chip_smoke.py``'s bounds.  One
+call is one report, however many kernels it launches.
+
+On ``meta`` tensors (``_device.kernel_path``: the dry run, the counted
+steps) both walk the CUDA path without launching: they allocate what the
+launch would (results, the forward's chunk scratch, the backward's
+workspace, :func:`bwd_workspace_floats` floats) with the same shapes,
+dtypes and strides, report the call as the card does, and never load the
+library.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ import functools
 
 import torch
 
+from ..._device import kernel_path
 from ...roofline import op_cost
 from .. import _build
 from .ref import wkv6_bwd_ref, wkv6_ref
@@ -105,6 +114,18 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def bwd_workspace_floats(b: int, t: int, h: int, hd: int, chunk: int) -> int:
+    """The backward's workspace in floats, ``wkv6_bwd_workspace_floats`` of
+    ``csrc/wkv6_bwd.cu`` in Python (chip_smoke.py's phase 9 holds the two
+    equal): with more than one chunk each chunk's carried state and end
+    gradient and its delta, then dv's per-tile partials and du's per-chunk
+    partials."""
+    nc, bh = -(-t // chunk), b * h
+    tiles = hd // 32 if hd > 32 else 1
+    return (bh * nc * hd * (2 * hd + 1) if nc > 1 else 0) + tiles * b * t * h * hd + \
+        b * nc * h * hd
+
+
 def _check(r, k, v, w, u, s0) -> None:
     if r.dim() != 4:
         raise ValueError(f"wkv6 takes (B, T, H, hd) tensors; r is {tuple(r.shape)}")
@@ -121,9 +142,9 @@ def _check(r, k, v, w, u, s0) -> None:
                         f"{k.dtype}, {v.dtype}")
     tensors = [x for x in (r, k, v, w, u, s0) if x is not None]
     if any(x.device != r.device for x in tensors) or \
-            r.device.type not in ("cpu", "cuda"):
-        raise ValueError("wkv6 runs on one cuda device (or cpu for the plain "
-                         "version)")
+            r.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError("wkv6 runs on one cuda device (cpu for the plain "
+                         "version, meta to count it)")
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,7 +155,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (o (B, T, H, hd) f32, sT (B, H, hd, hd) f32); ``sT`` is ``s0``
     itself, updated in place, when one is given and no gradient is asked.
     Requires T % chunk == 0, as the reference does.  A CUDA tensor launches
-    the kernel; a CPU tensor takes the plain version (``wkv6_ref``).  On
+    the kernel, a meta tensor counts it (no launch); a CPU tensor takes the
+    plain version (``wkv6_ref``).  On
     the card r, k, v are f32 or bf16 and w, u, s0 f32, all contiguous, and
     r, k, v, w start on 16 bytes.  In grad mode, with an input that
     requires grad, the call runs as :class:`WKV6Fn` (``sT`` a new tensor).
@@ -143,7 +165,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, hd = r.shape
     if t % chunk:
         raise ValueError(f"T={t} not divisible by chunk={chunk}")
-    if r.device.type == "cpu":
+    if not kernel_path(r):
         o, st = wkv6_ref(r, k, v, w, u, s0=s0)
         return o, (st if s0 is None else s0.copy_(st))
     _check_card(r, k, v, w, u, s0)
@@ -151,7 +173,8 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        for x in (r, k, v, w, u, s0)):
         return WKV6Fn.apply(r, k, v, w, u, s0)
     o, st = run(r, k, v, w, u, s0, TIME_CHUNK)
-    wkv6_cuda.launches += 1
+    if not r.is_meta:
+        wkv6_cuda.launches += 1
     return o, st
 
 
@@ -178,7 +201,7 @@ def run(r, k, v, w, u, s0, chunk: int, st: torch.Tensor | None = None):
     """Launch K4 on checked CUDA tensors with time chunks of ``chunk`` steps:
     (o, sT), the final state written into ``st`` (default: ``s0``, else a
     new tensor).  ``wkv6_cuda`` calls it with ``TIME_CHUNK``; the sweep
-    with other chunk sizes."""
+    with other chunk sizes.  On meta tensors nothing is launched."""
     b, t, h, hd = r.shape
     o = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     if st is None:
@@ -187,13 +210,14 @@ def run(r, k, v, w, u, s0, chunk: int, st: torch.Tensor | None = None):
     scratch = None if t <= chunk else torch.empty(
         b * h * (-(-t // chunk) * (hd * hd + hd) + t * hd), dtype=torch.float32,
         device=r.device)
-    lib = _lib()
-    err = lib.wkv6_launch(
-        _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), None if s0 is None else s0.data_ptr(), o.data_ptr(),
-        st.data_ptr(), None if scratch is None else scratch.data_ptr(), b, t, h, hd,
-        chunk, torch.cuda.current_stream(r.device).cuda_stream)
-    _build.check(lib, err, "wkv6 kernel launch")
+    if not r.is_meta:
+        lib = _lib()
+        err = lib.wkv6_launch(
+            _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(), o.data_ptr(),
+            st.data_ptr(), None if scratch is None else scratch.data_ptr(), b, t, h, hd,
+            chunk, torch.cuda.current_stream(r.device).cuda_stream)
+        _build.check(lib, err, "wkv6 kernel launch")
     _report("K4", (r, k, v, w, u, s0), (o, st), r, FWD_FLOPS)
     return o, st
 
@@ -203,18 +227,19 @@ def wkv6_backward(r, k, v, w, u, s0, do, dsT=None):
     the gradients ``do`` of o and ``dsT`` of the final state (None: zero):
     each in its input's dtype, ds0 (B, H, hd, hd) f32 (the gradient of the
     zero state when ``s0`` is None).  A CUDA tensor launches K4's backward
-    with chunks of ``BWD_CHUNK`` steps; a CPU tensor takes the plain
-    version, ``wkv6_bwd_ref``."""
+    with chunks of ``BWD_CHUNK`` steps, a meta tensor counts it; a CPU
+    tensor takes the plain version, ``wkv6_bwd_ref``."""
     _check(r, k, v, w, u, s0)
     b, t, h, hd = r.shape
     for name, x, shape in (("do", do, r.shape), ("dsT", dsT, (b, h, hd, hd))):
         if x is not None and tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name} is {tuple(x.shape)}, want {tuple(shape)}")
-    if r.device.type == "cpu":
+    if not kernel_path(r):
         return wkv6_bwd_ref(r, k, v, w, u, s0, do, dsT)
     _check_card(r, k, v, w, u, s0)
     grads = run_backward(r, k, v, w, u, s0, do, dsT, BWD_CHUNK)
-    wkv6_backward.launches += 1
+    if not r.is_meta:
+        wkv6_backward.launches += 1
     return grads
 
 
@@ -234,16 +259,18 @@ def run_backward(r, k, v, w, u, s0, do, dsT, chunk: int):
     dw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
-    lib = _bwd_lib()
-    ws = torch.empty(lib.wkv6_bwd_workspace_floats(b, t, h, hd, chunk), dtype=torch.float32,
-                     device=r.device)
-    err = lib.wkv6_bwd_launch(
-        _DTYPES[r.dtype], *(x.data_ptr() for x in (r, k, v, w, u)),
-        None if s0 is None else s0.data_ptr(), do.data_ptr(),
-        None if dsT is None else dsT.data_ptr(),
-        *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd, chunk,
-        torch.cuda.current_stream(r.device).cuda_stream)
-    _build.check(lib, err, "wkv6 backward launch")
+    lib = None if r.is_meta else _bwd_lib()
+    floats = bwd_workspace_floats(b, t, h, hd, chunk) if lib is None else \
+        lib.wkv6_bwd_workspace_floats(b, t, h, hd, chunk)
+    ws = torch.empty(floats, dtype=torch.float32, device=r.device)
+    if lib is not None:
+        err = lib.wkv6_bwd_launch(
+            _DTYPES[r.dtype], *(x.data_ptr() for x in (r, k, v, w, u)),
+            None if s0 is None else s0.data_ptr(), do.data_ptr(),
+            None if dsT is None else dsT.data_ptr(),
+            *(x.data_ptr() for x in (dr, dk, dv, dw, du, ds0, ws)), b, t, h, hd, chunk,
+            torch.cuda.current_stream(r.device).cuda_stream)
+        _build.check(lib, err, "wkv6 backward launch")
     _report("K4 backward", (r, k, v, w, u, s0, do, dsT), (dr, dk, dv, dw, du, ds0), r,
             BWD_FLOPS)
     return dr, dk, dv, dw, du.to(u.dtype), ds0
@@ -272,7 +299,8 @@ class WKV6Fn(torch.autograd.Function):
         b, t, h, hd = r.shape
         st = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
         o, st = run(r, k, v, w, u, s0, TIME_CHUNK, st=st)
-        wkv6_cuda.launches += 1
+        if not r.is_meta:
+            wkv6_cuda.launches += 1
         ctx.save_for_backward(r, k, v, w, u, s0)
         ctx.set_materialize_grads(False)
         return o, st

@@ -8,7 +8,8 @@ Hopper kernel takes any T, so no length falls back to the plain version.
 So a reference-style ``wkv6(r, k, v, w, u, False)`` takes the plain path,
 as the reference's does, and a seventh positional argument raises
 ``TypeError``.  With ``use_kernel=True`` a CUDA tensor goes to K4 or
-raises, and a CPU tensor to the plain version; ``use_kernel=False`` asks
+raises, a meta tensor is counted as K4 (no launch), and a CPU tensor
+goes to the plain version; ``use_kernel=False`` asks
 for the plain version on any device.  Beyond the reference, the
 keyword-only ``s0`` carries a state in, and the final state is written
 into it in place (the model's cache update, ROADMAP P8).  On a CUDA

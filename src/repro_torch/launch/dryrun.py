@@ -11,10 +11,16 @@ collectives and its live bytes.  That the step runs proves the sharding
 rules are coherent; the counted bytes say whether it fits; the counts
 feed the roofline table (``roofline.analysis``).
 
-The model is built with ``use_kernel=False``: a hand-written kernel reads
-raw device pointers, which a meta tensor does not have, and a dispatch
-mode cannot see inside it.  The roofline counts the function's work,
-whatever implements it.
+The model is built with ``use_kernel=True``, so a cell counts the step
+that ``Trainer`` and ``ServingEngine`` run on the card: attention in K3,
+the WKV recurrence in K4 and the RG-LRU scan in K5, forward and backward,
+each on the rank's local shards under the mesh.  On meta tensors a kernel
+wrapper launches nothing: it allocates what its launch would (results,
+saved statistics, scratch and workspaces, so the peak holds them) and
+reports the launch (``op_cost.kernel_launch``: its operands read once,
+its results written once, its own flops).  The plain versions' per-step
+states and score-sized intermediates, which no card runs, are not
+counted; ``count_cell(..., kernel=False)`` still counts them, for tests.
 
 A cell's keys are the reference's; in the port they mean:
 
@@ -46,9 +52,9 @@ llama-3.2-vision-90b's train cell (100 layers, 16 microbatches) took more
 than five minutes on the CPU.  The memory peak is the two microbatches',
 with the gradient accumulator live.
 
-Usage:
+Usage (the whole table, 80 cells, as the reference's CLI defaults to):
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all \\
-        --mesh single --device cpu --out experiments/torch_dryrun.json
+        --mesh both --device cpu --out experiments/torch_dryrun.json
 """
 from __future__ import annotations
 
@@ -204,15 +210,17 @@ def _memory(counter, args, out, arg_bytes: int) -> dict:
     }
 
 
-def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, whole: bool = False):
+def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, whole: bool = False,
+                kernel: bool = True):
     """Place ``cfg``'s abstract state and count one step: (cost, memory,
     seconds placing, seconds counting).  A train step of k > 2
     microbatches runs two and counts the second k - 2 more times unless
-    ``whole``."""
+    ``whole``.  ``kernel=False`` counts the plain versions in place of
+    the kernels."""
     t0 = time.time()
     rules = cell_rules(cfg, shape, mesh)
     model = build_model(cfg, max_pos=shape.seq_len, device=mesh.device_type,
-                        use_kernel=False)
+                        use_kernel=kernel)
     with use_rules(rules):
         params_abs = model.abstract_params()
         p_sh = param_shardings(cfg, params_abs, rules)
@@ -250,9 +258,10 @@ def _count_step(cfg: ModelConfig, shape: ShapeConfig, mesh, whole: bool = False)
         return counter.cost, _memory(counter, args, out, arg_bytes), t_lower, t_compile
 
 
-def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
+def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, kernel: bool = True) -> dict:
     """Count one step of ``cfg`` at ``shape`` on ``mesh`` (under an open
     process group of the mesh's size): the result's keys from ``chips`` on.
+    The kernel path unless ``kernel=False``.
 
     A prefill or decode stack of more than four repeats of its layer
     pattern is counted at three and at four repeats (with its remainder
@@ -270,11 +279,11 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     reps, rem = divmod(cfg.num_layers, period)
     if reps > 4:
         three = dataclasses.replace(cfg, num_layers=3 * period + rem)
-        _count_step(three, shape, mesh)
+        _count_step(three, shape, mesh, kernel=kernel)
     if reps > 4 and shape.kind != "train":
-        c3, m3, l3, s3 = _count_step(three, shape, mesh)
+        c3, m3, l3, s3 = _count_step(three, shape, mesh, kernel=kernel)
         c4, m4, l4, s4 = _count_step(dataclasses.replace(cfg, num_layers=4 * period + rem),
-                                     shape, mesh)
+                                     shape, mesh, kernel=kernel)
         cost = Cost()
         cost.add(c3)
         cost.add(c4, reps - 3)
@@ -282,7 +291,7 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
         memory = {k: m3[k] + (reps - 3) * (m4[k] - m3[k]) for k in m3}
         t_lower, t_compile = l3 + l4, s3 + s4
     else:
-        cost, memory, t_lower, t_compile = _count_step(cfg, shape, mesh)
+        cost, memory, t_lower, t_compile = _count_step(cfg, shape, mesh, kernel=kernel)
 
     tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
     mf = (model_flops_train if shape.kind == "train" else model_flops_infer)(

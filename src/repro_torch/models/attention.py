@@ -59,6 +59,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .._device import kernel_path
 from ..configs.base import ModelConfig
 from ..distributed.sharding import (as_dtensor, current_rules, is_dtensor, on_local_shards,
                                     shard)
@@ -242,10 +243,10 @@ def seq_shard_attention(q_local, k, v, offset: int, window: int, *,
                         use_kernel: bool = True) -> torch.Tensor:
     """One sequence shard's causal attention: q_local (B,Tl,H,hd) at global
     positions [offset, offset+Tl) against the full k/v (B,S,KV,hd).  K3 at
-    ``q_offset=offset`` with the window on a CUDA tensor (``use_kernel``);
+    ``q_offset=offset`` with the window on a CUDA or meta tensor (``use_kernel``);
     else the reference's windowed local form or ``chunked_attention`` with
     query chunks no longer than the shard."""
-    if use_kernel and q_local.device.type == "cuda":
+    if use_kernel and kernel_path(q_local):
         return _kernel_attention(q_local, k, v, causal=True, q_offset=offset,
                                  window=window)
     if window > 0:
@@ -426,7 +427,8 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     Returns (out, new_cache).  ``cache=None`` means train/prefill without
     cache retention; a dict cache triggers the decode path when Tq == 1.
     On a CUDA tensor, with ``use_kernel`` (the default), attention runs in
-    K3; otherwise in the plain versions.  kind: "full" | "local" (any other
+    K3 (on a meta tensor it is counted as K3); otherwise in the plain
+    versions.  kind: "full" | "local" (any other
     kind attends as "full", as in the reference); cross-attention passes
     ``cross_x`` (no rope, not causal), or a cache holding ``xk``/``xv``.
     """
@@ -435,7 +437,7 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     hd = cfg.head_dim
     window = cfg.attn_window if kind == "local" else 0
     theta = cfg.rope_theta if theta is None else theta
-    kernel = use_kernel and x.device.type == "cuda"
+    kernel = use_kernel and kernel_path(x)
 
     if cross_x is not None or (cache is not None and "xk" in cache):
         if cross_x is None:
@@ -499,9 +501,14 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             # slot < min(pos + 1, S).  Ring slots are not in position order
             # (slot s holds position p with p % S = s), so K3's window, which
             # compares slot indices with positions, would drop valid slots;
-            # softmax does not care about the order of the keys it sums
-            out = _kernel_attention(q, k_cache, v_cache, causal=True,
-                                    q_offset=pos_offset)
+            # softmax does not care about the order of the keys it sums.
+            # Under mesh rules K3 runs on each rank's shards (F15): its query
+            # heads against its batch shard of the cache, whose slot shards
+            # are gathered (B11 would combine them by log-sum-exp instead)
+            def attend(q_, k_, v_):
+                return _kernel_attention(q_, k_, v_, causal=True, q_offset=pos_offset)
+            out = _on_head_shards(attend, q, k_cache, v_cache) if is_dtensor(q) else \
+                attend(q, k_cache, v_cache)
         else:
             # one query a sequence: its heads replicated (a small gather),
             # so that DTensor splits them into (KV, G) groups on whole
